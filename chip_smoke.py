@@ -22,12 +22,24 @@ seconds:
    on a small input;
 5. the stream at 640x480: FusedFarnebackStream and the flow-node backend on
    uint8 BGR frames with a known shift; VelocityEstimator m/s; step_many ==
-   step bit for bit; per-frame latency (p50, p99) over a 400-frame window.
+   step bit for bit; per-frame latency (p50, p99) over a 400-frame window;
+6. K3 warp_bilinear vs its plain version, zeros and edge padding, mask off
+   and on, at PWC-Net's level 2 (B=8) and on Farneback's 720p planes (B=6),
+   with flows that put taps out of the image and a column that straddles
+   the mask threshold; timed beside its bound and F.grid_sample;
+7. K4 local_correlation vs its plain version in the six configurations of
+   the model zoo, at the channels and level sizes each model has at
+   640x480, B=1 and B=8; timed beside its bound;
+8. the PWC-Net path at 640x480 on seeded weights (the packaged npz is not
+   read, so the run needs no weights file): K3 and K4 launches per estimate call; the
+   kernel path vs the plain path on the card and vs the CPU; latency at
+   B=1, pairs/s at B=8, and a 200-frame uint8 BGR stream through
+   make_model_backend and VelocityEstimator (p50, p99 per frame).
 
-Phases 4 and 5 also run their path once under torch.profiler: device busy
-time, idle share, how much of the idle time the device spent waiting for
-the host to launch its next operation, and the stream synchronizations and
-host-to-device copies made.  ``--trace DIR`` keeps those two profiles there
+Phases 4, 5 and 8 also run their path once under torch.profiler: device
+busy time, idle share, how much of the idle time the device spent waiting
+for the host to launch its next operation, and the stream synchronizations
+and host-to-device copies made.  ``--trace DIR`` keeps those profiles there
 as Chrome traces.
 
 Then one JSON line with every kernel's launches, error, times and bound, and
@@ -420,12 +432,311 @@ def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
     require(abs(du_b - dx) < 0.1, f"backend du {du_b:.4f} near the shift")
 
 
+def k3_phase(torch, dev, seed=5) -> dict:
+    import torch.nn.functional as F
+
+    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import (
+        warp_bilinear, warp_bilinear_plain)
+
+    rng = np.random.default_rng(seed)
+    tol = 1e-6
+    worst = 0.0
+    entry = None
+    # PWC-Net's level-2 warp at 640x480, B=8; Farneback's 720p planes, B=6
+    for B, C, H, W in ((8, 32, 128, 160), (6, 5, 720, 1280)):
+        src = torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32)).to(dev)
+        src += 3.0  # no exact zeros: a zero output is a gated or empty pixel
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        # smooth flow up to ~8 px plus noise: taps leave the image near its
+        # borders; the last column straddles the 0.999 mask threshold
+        u = np.stack([6 * np.sin(2 * np.pi * (yy / H + b / B)) for b in range(B)])
+        v = np.stack([4 * np.cos(2 * np.pi * (xx / W + b / B)) for b in range(B)])
+        u = (u + rng.uniform(-2, 2, u.shape)).astype(np.float32)
+        v = (v + rng.uniform(-2, 2, v.shape)).astype(np.float32)
+        u[:, :, -1] = 0.001 + rng.uniform(-1e-6, 1e-6, (B, H))
+        v[:, :, -1] = 0.0
+        u, v = torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev)
+        scale = float(src.abs().max())
+        for padding in ("zeros", "edge"):
+            for thr in (None, 0.999):
+                got = warp_bilinear(src, u, v, padding, thr)
+                want = warp_bilinear_plain(src, u, v, padding, thr)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                gates = bool(torch.equal(got == 0, want == 0))
+                empty = float((want == 0).all(1).float().mean())
+                print(f"K3 [{B}, {C}, {H}, {W}] {padding} mask "
+                      f"{'on' if thr else 'off'}: zero share {empty:.4f}; max|d| "
+                      f"{err:.3e}, /max|src| {err / scale:.3e} (tolerance {tol:.0e}: "
+                      f"FMA contraction of the tap sum); gates equal: {gates}")
+                require(gates and err <= tol * scale,
+                        f"K3 {padding} mask {thr} agrees with its plain version")
+        # one PyTorch call computing the same warp: grid_sample on the
+        # align_corners=True grid that maps onto these pixel coordinates
+        gx = 2 * (torch.arange(W, device=dev) + u) / (W - 1) - 1
+        gy = 2 * (torch.arange(H, device=dev)[:, None] + v) / (H - 1) - 1
+        grid = torch.stack([gx, gy], -1)
+        lib = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        lib_err = float((lib - warp_bilinear(src, u, v)).abs().max())
+        print(f"K3 vs F.grid_sample(align_corners=True): max|d| {lib_err:.3e} "
+              f"(the normalized grid's rounding)")
+        require(lib_err <= 1e-3 * scale, "grid_sample computes the same warp")
+        ms = cuda_ms(lambda: warp_bilinear(src, u, v), reps=20)
+        masked_ms = cuda_ms(lambda: warp_bilinear(src, u, v, "zeros", 0.999), reps=20)
+        edge_ms = cuda_ms(lambda: warp_bilinear(src, u, v, "edge"), reps=20)
+        plain_ms = cuda_ms(lambda: warp_bilinear_plain(src, u, v), reps=5)
+        lib_ms = cuda_ms(lambda: F.grid_sample(
+            src, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+            reps=20)
+        n_pix = B * H * W
+        # src read once, u and v read, out written; 4 taps x 2 flops per value
+        n_bytes = 4 * (2 * C * n_pix + 2 * n_pix)
+        b_ms, by = bound_ms(n_bytes, 8 * C * n_pix)
+        print(f"K3 [{B}, {C}, {H}, {W}] zeros: {ms:.4f} ms per launch (mask on "
+              f"{masked_ms:.4f} ms, edge {edge_ms:.4f} ms; plain {plain_ms:.4f} ms, "
+              f"grid_sample {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by}: "
+              f"{n_bytes / 1e6:.1f} MB)")
+        if entry is None:
+            entry = {"name": "warp_bilinear", "route": "cuda",
+                     "source": "opticalflowcontainer_tpu_torch/ops/csrc/warp_bilinear.cu",
+                     "replaces": "opticalflowcontainer_tpu/ops/blockwarp.py:519",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": lib_ms}
+        del src, u, v, grid, lib, got, want
+    entry["max_abs_err"] = worst
+    return entry
+
+
+# (max_disp, disp_stride, out_stride, channels, level H, level W) of every
+# user of the correlation at 640x480: PWC-Net pads to 640x512 and correlates
+# at 1/4 (pwcnet.py); LiteFlowNet and LFN3 pad to 640x480 and correlate at
+# the levels of their shared trunk (32/32/64/96/128/192 channels at
+# 1/1..1/32; liteflownet.py, liteflownet3.py), largest level of each listed
+CORR_AT_640x480 = {
+    "pwc": (4, 1, 1, 32, 128, 160),
+    "lfn_levels4to6": (3, 1, 1, 96, 60, 80),
+    "lfn_levels2to3": (6, 2, 2, 64, 240, 320),
+    "lfn3_cross": (4, 1, 1, 64, 120, 160),
+    "lfn3_self_level4": (6, 2, 1, 96, 60, 80),
+    "lfn3_self_level3": (8, 2, 1, 64, 120, 160),
+}
+
+
+def k4_phase(torch, dev, seed=6) -> dict:
+    from opticalflowcontainer_tpu_torch.ops.correlation import (
+        correlation_plain, local_correlation)
+
+    rng = np.random.default_rng(seed)
+    tol = 1e-6
+    worst = 0.0
+    entry = None
+    for name, (md, ds, os_, C, H, W) in CORR_AT_640x480.items():
+        for B in (1, 8):
+            f1, f2 = (torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32))
+                      .to(dev) for _ in range(2))
+            got = local_correlation(f1, f2, md, ds, os_)
+            want = correlation_plain(f1, f2, md, ds, os_)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(f1.abs().max() * f2.abs().max())
+            worst = max(worst, err)
+            print(f"K4 {name} {(md, ds, os_)} [{B}, {C}, {H}, {W}] -> "
+                  f"{tuple(got.shape)}: max|d| {err:.3e}, /max|f1|max|f2| "
+                  f"{err / scale:.3e} (tolerance {tol:.0e}: a mean of {C} fp32 "
+                  f"products in another order)")
+            require(got.shape == want.shape and err <= tol * scale,
+                    f"K4 {name} B={B} agrees with its plain version")
+        K2 = got.shape[1]
+        Ho, Wo = got.shape[2:]
+        ms = cuda_ms(lambda: local_correlation(f1, f2, md, ds, os_), reps=20)
+        # f1 (at the output stride) and f2 read once, the volume written
+        n_bytes = 4 * (C * B * Ho * Wo + C * B * H * W + K2 * B * Ho * Wo)
+        b_ms, by = bound_ms(n_bytes, 2 * C * K2 * B * Ho * Wo)
+        line = (f"K4 {name} B=8: {ms:.4f} ms per launch, bound {b_ms:.4f} ms "
+                f"by {by} ({n_bytes / 1e6:.1f} MB)")
+        if name == "pwc":
+            plain_ms = cuda_ms(lambda: correlation_plain(f1, f2, md, ds, os_), reps=5)
+            line += f", plain {plain_ms:.4f} ms; no single PyTorch call computes it"
+            entry = {"name": "local_correlation", "route": "cuda",
+                     "source": "opticalflowcontainer_tpu_torch/ops/csrc/correlation.cu",
+                     "replaces": "opticalflowcontainer_tpu/ops/correlation_pallas.py:67",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": None}
+        print(line)
+        del f1, f2, got, want
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def seeded_pwcnet(torch, seed: int, device):
+    """PWC-Net at full width with He-normal weights (std sqrt(2 / fan_in))
+    from a seeded torch.Generator and zero biases: flows of a few to ~40 px
+    at 640x480, so the masked warps reach out of the image."""
+    from opticalflowcontainer_tpu_torch.models.pwcnet import PWCNet
+
+    g = torch.Generator().manual_seed(seed)
+    model = PWCNet()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                fan_in = m.weight.shape[0] * 4  # 2x2 taps of the 4x4/s2 kernel
+            elif isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+            else:
+                continue
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           * (2.0 / fan_in) ** 0.5)
+            m.bias.zero_()
+    return model.to(device).eval()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The PWC-Net path with K3 and K4 replaced by their plain versions
+    (for comparing the kernels' path with the plain one on the card)."""
+    from unittest import mock
+
+    from opticalflowcontainer_tpu_torch.models import pwcnet
+    from opticalflowcontainer_tpu_torch.ops import correlation as k4
+    from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
+
+    with mock.patch.object(k3, "warp_bilinear", k3.warp_bilinear_plain), \
+            mock.patch.object(pwcnet, "local_correlation", k4.correlation_plain):
+        yield
+
+
+def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
+    import functools
+
+    from opticalflowcontainer_tpu_torch.models.pwcnet import estimate
+    from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
+    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
+    from opticalflowcontainer_tpu_torch.runtime.nodes import make_model_backend
+    from opticalflowcontainer_tpu_torch.runtime.velocity import VelocityEstimator
+
+    model = seeded_pwcnet(torch, seed, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    gains = torch.tensor([0.9, 1.0, 1.1], device=dev)  # B, G, R
+
+    def pair(h, w, batch, device):
+        g = plane_waves(torch, h, w, [(1.5 * t, 0.5 * t) for t in range(2 * batch)],
+                        seed=8, device=device)
+        img = (g[..., None] * gains.to(device) / 255.0).clamp(0, 1)
+        return img[0::2].contiguous(), img[1::2].contiguous()
+
+    i1, i2 = pair(H, W, 1, dev)
+    estimate(model, i1, i2)  # warm-up: library load, cuDNN heuristics
+    torch.cuda.synchronize()
+    warp_bilinear.launches = 0
+    local_correlation.launches = 0
+    flow = estimate(model, i1, i2)
+    torch.cuda.synchronize()
+    launches = {"warp_bilinear": warp_bilinear.launches,
+                "local_correlation": local_correlation.launches}
+    print(f"PWC-Net ({n_params} parameters, seeded) one estimate call at "
+          f"{W}x{H} launched {launches} (expected 4 and 5)")
+    require(launches == {"warp_bilinear": 4, "local_correlation": 5},
+            "each estimate call runs 4 masked warps and 5 correlations")
+    require(tuple(flow.shape) == (1, H, W, 2), f"flow shape {tuple(flow.shape)}")
+    require(bool(torch.isfinite(flow).all()), "flow is finite")
+    print(f"flow |u|,|v| mean {flow.abs().mean((0, 1, 2)).tolist()}, max "
+          f"{float(flow.abs().max()):.3f} px")
+
+    def latency(x1, x2, reps, warm=5):
+        """ms of each of ``reps`` estimate calls after ``warm``, CUDA events."""
+        out = []
+        for _ in range(warm + reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            estimate(model, x1, x2)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return np.array(out[warm:])
+
+    mean_bar, max_bar = 1e-3, 5e-2
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # fp32 convolutions to compare
+    try:
+        kern = estimate(model, i1, i2)
+        with plain_kernels():
+            plain = estimate(model, i1, i2)
+        d = (kern - plain).abs()
+        print(f"{W}x{H} kernel path vs plain path on the card: mean|d| "
+              f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e} px (bars "
+              f"{mean_bar} / {max_bar}: fp32 sums in another order; the max "
+              f"allows a masked-warp threshold flip)")
+        require(float(d.mean()) <= mean_bar and float(d.max()) <= max_bar,
+                "the kernels' path agrees with the plain path")
+        s1, s2 = pair(128, 192, 1, "cpu")
+        on_card = estimate(model, s1, s2).cpu()
+        on_cpu = estimate(seeded_pwcnet(torch, seed, "cpu"), s1, s2)
+        d = (on_card - on_cpu).abs()
+        print(f"192x128 card vs CPU (plain versions, fp32): mean|d| "
+              f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e} px (bars "
+              f"{mean_bar} / {max_bar})")
+        require(float(d.mean()) <= mean_bar and float(d.max()) <= max_bar,
+                "card agrees with the CPU")
+        fp32_ms = latency(i1, i2, 50)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    lat = latency(i1, i2, 50)
+    print(f"{W}x{H} estimate at B=1, CUDA events over 50 calls: median "
+          f"{np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms "
+          f"(PyTorch defaults, cuDNN TF32 {tf32}); with fp32 convolutions "
+          f"median {np.median(fp32_ms):.3f} ms")
+    b1, b2 = pair(H, W, 8, dev)
+    torch.cuda.reset_peak_memory_stats()
+    lat8 = latency(b1, b2, 10)
+    print(f"{W}x{H} estimate at B=8: median {np.median(lat8):.3f} ms per call, "
+          f"{8e3 / np.median(lat8):.2f} pairs/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del b1, b2
+
+    profile_path(torch, "one PWC-Net estimate at B=1",
+                 lambda: estimate(model, i1, i2), trace_dir, "pwcnet")
+
+    # the stream: uint8 BGR camera frames in host memory through the
+    # learned-model backend into the velocity estimator
+    g = plane_waves(torch, H, W, [(1.5 * t, 0.0) for t in range(n)], seed=9,
+                    device=dev)
+    frames = (g[..., None] * gains).clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+    del g
+    backend = make_model_backend(functools.partial(estimate, model), device=dev)
+    vel = VelocityEstimator()
+    backend(frames[0], frames[1], 1 / 30)  # warm-up
+    warp_bilinear.launches = 0
+    local_correlation.launches = 0
+    times = []
+    for prev, cur in zip(frames[:-1], frames[1:]):
+        t0 = time.perf_counter()
+        f = backend(prev, cur, 1 / 30)
+        vx, _, _ = vel.update(f, 1 / 30)
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(f.shape == (H, W, 2) and np.isfinite(f).all() and np.isfinite(vx),
+                "the stream's flow and velocity are finite")
+    times = np.array(times)
+    print(f"{W}x{H} PWC-Net stream, {n - 1} uint8 BGR frames (host clock, frame "
+          f"to numpy flow and m/s): p50 {np.percentile(times, 50):.3f} ms, p99 "
+          f"{np.percentile(times, 99):.3f} ms, mean {times.mean():.3f} ms, min "
+          f"{times.min():.3f} ms, max {times.max():.3f} ms; launches "
+          f"{warp_bilinear.launches}, {local_correlation.launches} (expected "
+          f"{4 * (n - 1)}, {5 * (n - 1)})")
+    require(warp_bilinear.launches == 4 * (n - 1)
+            and local_correlation.launches == 5 * (n - 1),
+            "the stream ran both kernels on every frame")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", metavar="DIR",
-                    help="write the profiled clip call and stream steps as "
-                         "Chrome traces into DIR")
+                    help="write the profiled clip call, stream steps and "
+                         "PWC-Net estimate as Chrome traces into DIR")
     args = ap.parse_args()
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
@@ -451,10 +762,16 @@ def main() -> int:
         launches = clip_phase(torch, dev, args.trace)
     with phase("5 640x480 stream"):
         stream_phase(torch, dev, args.trace)
-    for k in (k1, k2):
+    with phase("6 K3 warp_bilinear vs plain"):
+        k3 = k3_phase(torch, dev)
+    with phase("7 K4 local_correlation vs plain"):
+        k4 = k4_phase(torch, dev)
+    with phase("8 PWC-Net 640x480 (correlation path)"):
+        launches.update(pwc_phase(torch, dev, args.trace))
+    for k in (k1, k2, k3, k4):
         k["launches"] = launches[k["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

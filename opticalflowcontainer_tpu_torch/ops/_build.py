@@ -39,6 +39,13 @@ _SIGNATURES = {
     "ofc_farneback_update": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     # M, taps, u, v, B, H, W, r, tile_h, tile_w, smem_bytes, stream
     "ofc_blur_solve": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # src, u, v, out, B, C, H, W, edge, use_mask, threshold, stream
+    "ofc_warp_bilinear": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P]),
+    # out_stride, max_disp -> shared-memory bytes of one block
+    "ofc_correlation_smem": (_I, [_I, _I]),
+    # f1, f2, out, B, C, H, W, max_disp, disp_stride, out_stride, stream
+    "ofc_correlation": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 
