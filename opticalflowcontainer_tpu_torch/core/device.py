@@ -7,10 +7,15 @@ exists rather than quietly running on the CPU.
 """
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 
 import torch
+
+# streaming multiprocessors of an H100 SXM: the default the kernels' launch
+# configurations assume where no card is asked (the CPU tests)
+H100_SMS = 132
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -65,3 +70,9 @@ def capabilities() -> dict:
         report["name"] = torch.cuda.get_device_name(0)
         report["sm"] = f"sm_{major}{minor}"
     return report
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

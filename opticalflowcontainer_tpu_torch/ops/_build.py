@@ -37,11 +37,15 @@ _SIGNATURES = {
     "ofc_max_dynamic_smem": (_I, [_I]),
     # R0, R1, u, v, M, B, H, W, stream (on the current device)
     "ofc_farneback_update": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    # M, taps, u, v, B, H, W, r, tile_h, tile_w, smem_bytes, stream
+    # M, taps (device), u, v, B, H, W, r, tile_h, tile_w, smem_bytes, stream
     "ofc_blur_solve": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # src, u, v, out, B, C, H, W, edge, use_mask, threshold, stream
+    # M, taps (host, 2r+1 floats), u, v, B, H, W, r, tile_w, stream
+    "ofc_blur_solve_reg": (_I, [_P, ctypes.POINTER(ctypes.c_float), _P, _P,
+                                _I, _I, _I, _I, _I, _P]),
+    # src, u, v, out, B, C, H, W, edge, use_mask, threshold, groups, wide,
+    # stream
     "ofc_warp_bilinear": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               ctypes.c_float, _P]),
+                               ctypes.c_float, _I, _I, _P]),
     # out_stride, max_disp -> shared-memory bytes of one block
     "ofc_correlation_smem": (_I, [_I, _I]),
     # f1, f2, out, B, C, H, W, max_disp, disp_stride, out_stride, stream

@@ -10,7 +10,9 @@ and have no counterpart.
 
 ``warp_bilinear`` launches the kernel for CUDA tensors and uses
 :func:`warp_bilinear_plain` only for CPU tensors.  The kernel has no
-backward: on the card it refuses inputs that require a gradient.
+backward: on the card it refuses inputs that require a gradient.  Its
+launch configuration (:func:`launch_config`) is a pure function of the
+shape and the card's SM count, so the CPU tests check it.
 """
 from __future__ import annotations
 
@@ -18,9 +20,35 @@ import ctypes
 
 import torch
 
+from ..core.device import H100_SMS, sm_count
 from ._build import check_launch, load_kernels
 
 PADDINGS = ("zeros", "edge")
+THREADS = 128       # threads per block (kThreads in the source); one pixel each
+CHANNELS = 4        # channels per group, at least, where the card is full
+BLOCKS_PER_SM = 2   # the least a launch should give each SM, where C allows
+
+
+def channel_groups(B: int, C: int, H: int, W: int,
+                   sms: int = H100_SMS) -> int:
+    """How many channel groups the grid splits C into: groups of about
+    ``CHANNELS`` channels, and more (at most C) where the B*H*W pixels and
+    those groups would give an SM fewer than ``BLOCKS_PER_SM`` blocks.  The
+    count is the one the kernel launches: groups of C // g channels (the
+    last one ragged), so at least g of them."""
+    pixel_blocks = B * -(-(H * W) // THREADS)
+    fill = -(-BLOCKS_PER_SM * sms // pixel_blocks)
+    cpg = C // min(C, max(fill, C // CHANNELS, 1))
+    return -(-C // cpg)
+
+
+def launch_config(B: int, C: int, H: int, W: int,
+                  sms: int = H100_SMS) -> dict:
+    """The kernel's launch configuration for src [B, C, H, W]: channel
+    groups, and 64-bit offsets only when the tensor has 2^31 values or
+    more."""
+    return {"groups": channel_groups(B, C, H, W, sms),
+            "wide": B * C * H * W >= 2**31}
 
 
 def sample_plain(src: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -119,6 +147,23 @@ def warp_bilinear(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the launch grid (65535)")
     src, u, v = src.contiguous(), u.contiguous(), v.contiguous()
+    out = launch(src, u, v, padding, mask_threshold,
+                 **launch_config(B, C, H, W, sm_count(src.device.index)))
+    warp_bilinear.launches += 1
+    return out
+
+
+warp_bilinear.launches = 0
+
+
+def launch(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor, padding: str,
+           mask_threshold: float | None, *, groups: int,
+           wide: bool) -> torch.Tensor:
+    """One launch of the kernel with the given configuration on contiguous
+    CUDA tensors checked by the caller (``warp_bilinear`` passes
+    :func:`launch_config`'s; ``chip_smoke.py --variants`` passes
+    others to measure each choice apart).  Counts nothing."""
+    B, C, H, W = src.shape
     out = torch.empty_like(src)
     # the launcher runs on the current device: select src's for the call only
     with torch.cuda.device(src.device):
@@ -126,10 +171,7 @@ def warp_bilinear(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             src.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), B, C,
             H, W, int(padding == "edge"), int(mask_threshold is not None),
             ctypes.c_float(0.0 if mask_threshold is None else mask_threshold),
+            groups, int(wide),
             torch.cuda.current_stream(src.device).cuda_stream)
     check_launch(err, "warp_bilinear")
-    warp_bilinear.launches += 1
     return out
-
-
-warp_bilinear.launches = 0

@@ -93,9 +93,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_warp_kernel_matches_plain(padding, mask, cuda):
     """K3 with flows up to 8 px (many taps out of the image) and a column
     whose in-image weight straddles the 0.999 mask threshold.  The kernel
-    forms the weights and the mask sum with the plain version's fp32
-    operations in its order, so the gates agree at every pixel; the values
-    agree to 1e-6 of max|src| (FMA contraction of the tap sum)."""
+    forms the weights, the mask sum and the tap sum with the plain version's
+    fp32 operations in its order, so the gates agree at every pixel; the
+    values agree to 1e-6 of max|src| (equal in practice)."""
     B, C, H, W = 2, 7, 37, 70
     rng = np.random.default_rng(3)
     src = torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32) + 3).to(cuda)
@@ -112,6 +112,123 @@ def test_warp_kernel_matches_plain(padding, mask, cuda):
     assert k3.warp_bilinear.launches == before + 1
     assert torch.equal(got == 0, want == 0)
     assert (got - want).abs().max() <= 1e-6 * src.abs().max()
+
+
+def _k3_case(rng, B, C, H, W, reach, device):
+    src = torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32) + 3)
+    u = rng.uniform(-reach, reach, (B, H, W)).astype(np.float32)
+    v = rng.uniform(-reach, reach, (B, H, W)).astype(np.float32)
+    return src.to(device), torch.from_numpy(u).to(device), torch.from_numpy(v).to(device)
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 37, 70), (2, 33, 37, 70),
+                                   (2, 33, 200, 200), (3, 7, 1, 1),
+                                   (1, 33, 3, 5), (1, 128, 16, 20)])
+@pytest.mark.parametrize("padding", ["zeros", "edge"])
+@pytest.mark.parametrize("mask", [False, True])
+def test_warp_kernel_ragged_channels_and_tiny_images(shape, padding, mask, cuda):
+    """K3 at channel counts that are not multiples of the group size the
+    launch picks (C=33 runs 9 groups of 4, the last of 1; C=7 runs 7 groups
+    of 1), on 1x1 and 3x5 images and at
+    PWC-Net's level 5 (128 groups of 1).  Same bar as above: equal gates,
+    values to 1e-6 of max|src|."""
+    rng = np.random.default_rng(6)
+    src, u, v = _k3_case(rng, *shape, reach=4.0, device=cuda)
+    thr = 0.999 if mask else None
+    got = k3.warp_bilinear(src, u, v, padding, thr)
+    want = k3.warp_bilinear_plain(src, u, v, padding, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got == 0, want == 0)
+    assert (got - want).abs().max() <= 1e-6 * src.abs().max()
+
+
+@pytest.mark.parametrize("padding", ["zeros", "edge"])
+def test_warp_kernel_nan_and_huge_displacements(padding, cuda):
+    """A NaN or +-1e30 displacement makes no tap and no out-of-range
+    offset: zeros padding gives 0 there, edge padding clamps (NaN to 0, as
+    the plain version's nan_to_num does); the rest of the image is
+    untouched.  Run at C=33: 9 channel groups, the last of one channel."""
+    rng = np.random.default_rng(7)
+    src, u, v = _k3_case(rng, 2, 33, 9, 13, reach=3.0, device=cuda)
+    specials = torch.tensor([float("nan"), 1e30, -1e30, float("inf")], device=cuda)
+    u[0, 0, :4] = specials
+    v[0, 1, :4] = specials
+    u[1, 2, 5] = float("nan")
+    v[1, 2, 5] = 1e30
+    for thr in (None, 0.999):
+        got = k3.warp_bilinear(src, u, v, padding, thr)
+        want = k3.warp_bilinear_plain(src, u, v, padding, thr)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got == 0, want == 0)
+        assert (got - want).abs().max() <= 1e-6 * src.abs().max()
+        if padding == "zeros":
+            assert bool((got[0, :, 0, :4] == 0).all()) and bool((got[1, :, 2, 5] == 0).all())
+
+
+def test_warp_kernel_variants_agree_bit_for_bit(cuda):
+    """Every launch configuration the kernel takes (32- or 64-bit offsets,
+    any channel-group count, both borders, mask off and on) computes the
+    same fp32 operations in the same order: outputs equal bit for bit."""
+    rng = np.random.default_rng(8)
+    src, u, v = _k3_case(rng, 2, 33, 37, 70, reach=6.0, device=cuda)
+    base = k3.launch_config(*src.shape)
+    for padding in ("zeros", "edge"):
+        for thr in (None, 0.999):
+            want = k3.launch(src, u, v, padding, thr, **base)
+            for wide in (False, True):
+                for groups in (1, 5, 33):
+                    got = k3.launch(src, u, v, padding, thr, groups=groups, wide=wide)
+                    assert torch.equal(got, want), (padding, thr, wide, groups)
+
+
+def test_warp_kernel_64bit_offsets(cuda):
+    """B*C*H*W >= 2^31 takes the 64-bit offsets: the last channels' values
+    lie past 2^31 and must equal the plain version's warp of those
+    channels.  Needs ~18 GB free on the card, else skips."""
+    B, C, H, W = 1, 33, 8192, 8000
+    assert B * C * H * W >= 2**31
+    free, _ = torch.cuda.mem_get_info(cuda)
+    if free < 20 * 2**30:
+        pytest.skip(f"needs ~18 GB of free device memory, {free / 2**30:.1f} GB free")
+    assert k3.launch_config(B, C, H, W)["wide"]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    src = torch.randn((B, C, H, W), generator=g, device=cuda) + 3
+    u = torch.rand((B, H, W), generator=g, device=cuda) * 12 - 6
+    v = torch.rand((B, H, W), generator=g, device=cuda) * 12 - 6
+    got = k3.warp_bilinear(src, u, v, "zeros", 0.999)
+    for c in (slice(0, 1), slice(C - 2, C)):
+        want = k3.warp_bilinear_plain(src[:, c].contiguous(), u, v, "zeros", 0.999)
+        assert torch.equal(got[:, c] == 0, want == 0)
+        assert (got[:, c] - want).abs().max() <= 1e-6 * src.abs().max()
+    del src, got
+
+
+@pytest.mark.parametrize("winsize,gaussian", [(13, False), (13, True), (15, False),
+                                              (15, True), (9, False), (21, True)])
+@pytest.mark.parametrize("shape", [(2, 37, 71), (1, 480, 640), (1, 60, 80)])
+def test_blur_solve_kernels_at_ragged_sizes(winsize, gaussian, shape, cuda):
+    """K2 on sizes that are not tile multiples.  Radii 6 and 7 run the
+    register-blocked kernel, others the generic one (``variant``).  For
+    r = 6, 7 every register tile and the generic kernel are held against the
+    plain version too, so both kernels are checked at these radii.
+    Tolerance 1e-4 of scale, as above."""
+    rng = np.random.default_rng(9)
+    B, H, W = shape
+    a, b, c = (rng.standard_normal((B, H, W), np.float32) for _ in range(3))
+    M = torch.from_numpy(np.stack([a * a + 0.5, 0.3 * a * b, b * b + 0.5, c,
+                                   a * c], axis=1)).to(cuda)
+    r = winsize // 2
+    assert k2.variant(r) == (f"r{r}" if r in (6, 7) else "generic")
+    want = k2.blur_solve_plain(M, winsize, gaussian)
+    runs = [k2.blur_solve(M, winsize, gaussian)]
+    if r in k2.REG_RADII:
+        runs += [k2.launch(M, winsize, gaussian, True, t) for t in k2.REG_TILES]
+        runs.append(k2.launch(M, winsize, gaussian, False, (32, 64)))
+    torch.cuda.synchronize()
+    for got in runs:
+        for g, w in zip(got, want):
+            assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 # (max_disp, disp_stride, out_stride) of every user of the correlation

@@ -146,22 +146,71 @@ def test_blur_solve_plain_matches_pallas_kernel_interpret(gaussian, rng):
     np.testing.assert_allclose(v.numpy(), np.asarray(v_t), atol=2e-2)
 
 
-@pytest.mark.parametrize("r,limit,tile", [
-    (7, 232448, (32, 64)),     # winsize 15: largest tile, no opt-in
-    (20, 232448, (32, 64)),    # winsize 41 still fits 48 KB
-    (50, 232448, (32, 64)),    # winsize 101: opt-in above 48 KB
-    (50, 60000, (4, 32)),      # a small card: the largest tile that fits
+@pytest.mark.parametrize("r,limit,shape,tile", [
+    (7, 232448, (6, 720, 1280), (32, 112)),  # winsize 15, the clip: largest register tile
+    (20, 232448, (6, 720, 1280), (32, 64)),  # winsize 41, generic, still fits 48 KB
+    (50, 232448, (6, 720, 1280), (32, 64)),  # winsize 101: opt-in above 48 KB
+    (50, 60000, (6, 720, 1280), (4, 32)),    # a small card: the largest tile that fits
 ])
-def test_choose_tile(r, limit, tile):
-    th, tw, smem = k2.choose_tile(r, limit)
+def test_choose_tile(r, limit, shape, tile):
+    th, tw, smem = k2.choose_tile(r, limit, *shape)
     assert (th, tw) == tile
     assert smem == k2.smem_bytes(th, tw, r) <= limit
-    assert th * tw <= 256 * 8  # the kernel's per-thread register budget
+    # the kernel's per-thread register budget: 8 outputs a thread in the
+    # generic kernel, a run of up to 14 columns in the register-blocked one
+    assert th * tw <= 256 * (14 if r in k2.REG_RADII else 8)
+
+
+@pytest.mark.parametrize("r,shape,tile", [
+    (7, (1, 480, 640), (32, 112)),   # the stream's levels: 90 blocks, one per SM
+    (6, (1, 480, 640), (32, 112)),
+    (7, (1, 240, 320), (32, 32)),    # 80 blocks of 46 columns, not 160 of 30 on 28 SMs twice
+    (7, (1, 120, 160), (32, 16)),
+    (7, (1, 60, 80), (32, 16)),
+    (7, (8, 480, 640), (32, 112)),   # many waves: the least halo
+    (20, (1, 480, 640), (32, 64)),   # the generic kernel's tiles by the same rule
+    (20, (1, 60, 80), (2, 32)),
+])
+def test_choose_tile_balances_the_sms(r, shape, tile):
+    """The tile whose busiest SM reads the fewest values: ceil(blocks /
+    132) tiles with their halo, the larger tile on a tie."""
+    th, tw, _ = k2.choose_tile(r, 232448, *shape)
+    assert (th, tw) == tile
+    B, H, W = shape
+
+    def busiest(t):
+        return -(-B * -(-H // t[0]) * -(-W // t[1]) // 132) * (t[0] + 2 * r) * (t[1] + 2 * r)
+
+    tiles = k2.REG_TILES if r in k2.REG_RADII else k2.TILES
+    fits = [t for t in tiles if k2.smem_bytes(*t, r) <= 48 * 1024]
+    assert busiest((th, tw)) == min(busiest(t) for t in fits)
+
+
+def test_register_tiles_fit_without_opt_in():
+    """The register-blocked kernel's two vertical-pass buffers are static
+    shared memory, under the 48 KB a block gets without opt-in, with an odd
+    row stride (32 lanes on 32 rows hit 32 banks); each tile's vertical
+    pass has one item per thread at most, in runs of 16 rows or fewer."""
+    for r in k2.REG_RADII:
+        for th, tw in k2.REG_TILES:
+            assert th == 32 and tw % 8 == 0
+            assert k2.smem_bytes(th, tw, r) <= 48 * 1024
+            assert (k2.smem_bytes(th, tw, r) // (4 * 2 * th)) % 2 == 1
+            assert 2 * (tw + 2 * r) <= 256
+
+
+@pytest.mark.parametrize("winsize,want", [(15, "r7"), (14, "r7"), (13, "r6"),
+                                          (1, "generic"), (9, "generic"),
+                                          (41, "generic"), (101, "generic")])
+def test_blur_solve_variant_by_radius(winsize, want):
+    """Radius 7 (winsize 15, cv2's default) and 6 (13, the runtime's default)
+    run the register-blocked kernel; every other radius the generic one."""
+    assert k2.variant(winsize // 2) == want
 
 
 def test_choose_tile_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
-        k2.choose_tile(200, 232448)
+        k2.choose_tile(200, 232448, 1, 480, 640)
 
 
 def test_blur_solve_wrapper_checks(rng):

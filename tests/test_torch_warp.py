@@ -171,3 +171,49 @@ def test_warp_wrapper_checks_its_inputs():
         k3.warp_bilinear(src, uv[:, :4], uv)
     with pytest.raises(TypeError, match="float32"):
         k3.warp_bilinear(src.double(), uv, uv)
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((8, 32, 128, 160), 8),   # PWC-Net level 2 at B=8: groups of 4 channels
+    ((6, 5, 720, 1280), 1),   # Farneback's 720p planes: one group of 5
+    ((1, 128, 16, 20), 128),  # PWC-Net at B=1, level 5: 3 pixel blocks
+    ((1, 96, 32, 40), 32),    # level 4: 10 pixel blocks
+    ((1, 64, 64, 80), 16),    # level 3: 40
+    ((1, 32, 128, 160), 8),   # level 2: 160
+    ((1, 1, 16, 20), 1),      # one channel cannot be split
+    ((1, 3, 1, 1), 3),
+    ((2, 33, 37, 70), 9),     # groups of 4, the last of 1
+])
+def test_k3_channel_groups(shape, groups):
+    """Groups of about four channels (at least four where C allows), and
+    more where the pixels would leave the H100's 132 SMs with fewer than two
+    blocks each, at most C; groups of C // g channels, the last one ragged,
+    none empty."""
+    B, C, H, W = shape
+    g = k3.channel_groups(B, C, H, W)
+    assert g == groups
+    cpg = -(-C // g)
+    assert 1 <= g <= C and (g - 1) * cpg < C <= g * cpg
+    blocks = B * -(-(H * W) // k3.THREADS) * g
+    assert blocks >= 2 * 132 or g == C
+
+
+def test_k3_launch_config():
+    """64-bit offsets only from 2^31 values on; the channel groups of
+    ``channel_groups``; blocks of whole warps."""
+    cfg = k3.launch_config(8, 32, 128, 160)
+    assert cfg == {"groups": 8, "wide": False}
+    assert k3.THREADS % 32 == 0 and k3.THREADS <= 1024
+    assert not k3.launch_config(1, 1, 1, 2**31 - 1)["wide"]
+    assert k3.launch_config(1, 1, 1, 2**31)["wide"]
+    assert k3.launch_config(1, 33, 8192, 8000)["wide"]
+    # a smaller card needs fewer groups to fill it
+    assert k3.launch_config(1, 128, 16, 20, sms=33)["groups"] == 32
+
+
+def test_k3_cpu_path_counts_no_launch():
+    src = torch.ones(1, 2, 5, 6)
+    uv = torch.zeros(1, 5, 6)
+    before = k3.warp_bilinear.launches
+    assert torch.equal(k3.warp_bilinear(src, uv, uv), src)
+    assert k3.warp_bilinear.launches == before
