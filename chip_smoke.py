@@ -32,7 +32,9 @@ seconds:
    bound and F.grid_sample at each shape;
 7. K4 local_correlation vs its plain version in the six configurations of
    the model zoo, at the channels and level sizes each model has at
-   640x480, B=1 and B=8; timed beside its bound;
+   640x480, B=1 and B=8, and at PWC-Net's five B=1 levels; each launch run
+   twice and the two held bit for bit; timed beside its bound at B=8 and at
+   each of the five levels;
 8. the PWC-Net path at 640x480 on seeded weights (the packaged npz is not
    read, so the run needs no weights file): K3 and K4 launches per estimate call; the
    kernel path vs the plain path on the card and vs the CPU; latency at
@@ -645,11 +647,12 @@ def k3_phase(torch, dev, seed=5) -> dict:
 
 
 def variants_phase(torch, dev, seed=10) -> dict:
-    """The launch choices of K3 and K2 measured apart: device ms (graph
+    """The launch choices of K3, K2 and K4 measured apart: device ms (graph
     replay) of the chosen launch configuration beside the others the
-    kernels take, at every shape phases 3 and 6 time, in two passes
-    (forward, then reversed order; the lesser time kept).  Each variant's
-    output must equal the chosen one's bit for bit."""
+    kernels take, at every shape phases 3 and 6 time and K4's shapes
+    (``k4_variants``), in two passes (forward, then reversed order; the
+    lesser time kept).  Each K3 and K2 variant's output must equal the
+    chosen one's bit for bit."""
     import torch.nn.functional as F
 
     from opticalflowcontainer_tpu_torch.core.device import sm_count
@@ -732,6 +735,102 @@ def variants_phase(torch, dev, seed=10) -> dict:
             print(f"  {name:34s} {times[name]:.5f}")
         out["k2"].append({"shape": [b, 5, h, w], "winsize": winsize, "ms": times})
         del M
+    out["k4"] = k4_variants(torch, dev, rng, sms)
+    return out
+
+
+def k4_variant_configs(md, ds, os_, C, W, chosen) -> dict:
+    """K4's launch choices beside the chosen one: channel splits halved,
+    doubled and none; tile heights 2 and 8; tap rows per block one step
+    more and fewer; one staged buffer (the cp.async pipeline off), of the
+    chosen chunk or of the whole split, or two of 8 channels (on); 4-byte
+    copies where the 16-byte ones apply.  Those the kernel cannot take
+    (over 256 threads or 48 KB of shared memory) are left out."""
+    from opticalflowcontainer_tpu_torch.ops import correlation as k4
+
+    K = 2 * (md // ds) + 1
+    options = sorted({-(-K // g) for g in range(1, K + 1)}, reverse=True)
+    tw, th = chosen["tile"]
+    taps, splits = chosen["taps"], chosen["splits"]
+
+    def cfg(**kw):
+        a = {"tile": (tw, th), "taps": taps, "splits": splits,
+             "chunk": chosen["chunk"], "stages": chosen["stages"],
+             "copy16": True} | kw
+        a["chunk"] = min(a["chunk"], -(-C // a["splits"]))
+        return k4.make_config(md, ds, os_, a["tile"], a["taps"], a["splits"],
+                              a["chunk"], a["stages"], a["copy16"])
+
+    i = options.index(taps)
+    per = -(-C // splits)
+    out = {"chosen": chosen,
+           "channel splits x2": cfg(splits=min(C, 2 * splits)),
+           "channel splits /2": cfg(splits=max(1, splits // 2)),
+           "1 channel split": cfg(splits=1),
+           "tile height 2": cfg(tile=(tw, 2)),
+           "tile height 8": cfg(tile=(tw, 8)),
+           "more tap rows a block": cfg(taps=options[max(0, i - 1)]),
+           "fewer tap rows a block": cfg(taps=options[min(len(options) - 1, i + 1)]),
+           "one buffer (no overlap)": cfg(stages=1),
+           "one buffer, whole split": cfg(chunk=per, stages=1),
+           "two buffers of 8": cfg(chunk=8, stages=2)}
+    if os_ == 1 and W % 4 == 0:
+        out["4-byte copies"] = cfg(copy16=False)
+    keep = {}
+    for name, c in out.items():
+        if (c["smem"] <= k4.SMEM_LIMIT and c["threads"] <= k4.MAX_THREADS
+                and c not in keep.values()):
+            keep[name] = c
+    return keep
+
+
+def k4_variants(torch, dev, rng, sms) -> list:
+    """K4's launch choices (``k4_variant_configs``) timed apart by graph
+    replay at PWC-Net's five B=1 levels, its level 2 at B=8 and LiteFlowNet's
+    (6,2,2) at B=8, two passes, the lesser time kept.  A variant with the
+    chosen number of channel splits sums in the same order and must equal
+    the chosen launch bit for bit; one with another number of splits must
+    agree with the plain version at phase 7's tolerance.  TMA is not built
+    (PERF.md: a tensor map needs 16-byte rows, and PWC-Net's level 6 has
+    W = 10)."""
+    from opticalflowcontainer_tpu_torch.ops import correlation as k4
+
+    out = []
+    shapes = [(4, 1, 1, *s) for s in PWC_LEVELS_B1]
+    shapes += [(4, 1, 1, 8, 32, 128, 160), (6, 2, 2, 8, 64, 240, 320)]
+    for md, ds, os_, B, C, H, W in shapes:
+        f1, f2 = (torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32))
+                  .to(dev) for _ in range(2))
+        chosen = k4.launch_config(B, C, H, W, md, ds, os_, sms)
+        variants = k4_variant_configs(md, ds, os_, C, W, chosen)
+        want = k4.launch(f1, f2, md, ds, os_, chosen)
+        plain = k4.correlation_plain(f1, f2, md, ds, os_)
+        scale = float(f1.abs().max() * f2.abs().max())
+        for name, cfg in variants.items():
+            got = k4.launch(f1, f2, md, ds, os_, cfg)
+            if cfg["splits"] == chosen["splits"]:
+                require(torch.equal(got, want),
+                        f"K4 variant {name} equals the chosen one bit for bit")
+            else:
+                require(float((got - plain).abs().max()) <= 1e-6 * scale,
+                        f"K4 variant {name} agrees with the plain version")
+        keys = list(variants)
+        times = {k: graph_ms(lambda k=k: k4.launch(f1, f2, md, ds, os_, variants[k]))
+                 for k in keys}
+        for k in reversed(keys):
+            times[k] = min(times[k], graph_ms(
+                lambda k=k: k4.launch(f1, f2, md, ds, os_, variants[k])))
+        print(f"K4 variants {(md, ds, os_)} [{B}, {C}, {H}, {W}], chosen tile "
+              f"{chosen['tile']}, {chosen['taps']} tap rows, {chosen['splits']} "
+              f"splits, chunk {chosen['chunk']} x {chosen['stages']}: device ms")
+        for k in keys:
+            c = variants[k]
+            print(f"  {k:26s} {times[k]:.5f}  (tile {c['tile']}, taps {c['taps']}, "
+                  f"splits {c['splits']}, chunk {c['chunk']} x {c['stages']}, "
+                  f"{c['threads']} threads)")
+        out.append({"shape": [B, C, H, W], "config": [md, ds, os_],
+                    "ms": times})
+        del f1, f2, want, plain
     return out
 
 
@@ -750,39 +849,72 @@ CORR_AT_640x480 = {
 }
 
 
+# [B, C, H, W] of PWC-Net's five correlations at 640x480 (640x512 inside),
+# levels 6 to 2, at B=1: the stream node's unit of work
+PWC_LEVELS_B1 = ((1, 196, 8, 10), (1, 128, 16, 20), (1, 96, 32, 40),
+                 (1, 64, 64, 80), (1, 32, 128, 160))
+
+
+def k4_bytes_flops(C, H, W, B, K2, Ho, Wo) -> tuple[int, int]:
+    """Bytes (f1 at the output stride and f2 read once, the volume written)
+    and flops of one correlation."""
+    return (4 * (C * B * Ho * Wo + C * B * H * W + K2 * B * Ho * Wo),
+            2 * C * K2 * B * Ho * Wo)
+
+
 def k4_phase(torch, dev, seed=6) -> dict:
+    from opticalflowcontainer_tpu_torch.core.device import sm_count
     from opticalflowcontainer_tpu_torch.ops.correlation import (
-        correlation_plain, local_correlation)
+        correlation_plain, launch_config, local_correlation)
 
     rng = np.random.default_rng(seed)
     tol = 1e-6
     worst = 0.0
     entry = None
+
+    def check(f1, f2, md, ds, os_, what):
+        """The wrapper's launch against the plain version, and a second
+        launch bit for bit against the first."""
+        nonlocal worst
+        got = local_correlation(f1, f2, md, ds, os_)
+        want = correlation_plain(f1, f2, md, ds, os_)
+        again = local_correlation(f1, f2, md, ds, os_)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(f1.abs().max() * f2.abs().max())
+        worst = max(worst, err)
+        same = bool(torch.equal(got, again))
+        B, C, H, W = f1.shape
+        cfg = launch_config(B, C, H, W, md, ds, os_, sm_count(dev.index))
+        print(f"K4 {what} {(md, ds, os_)} [{B}, {C}, {H}, {W}] -> "
+              f"{tuple(got.shape)} (tile {cfg['tile']}, {cfg['taps']} tap rows, "
+              f"{cfg['splits']} channel splits, chunk {cfg['chunk']} x "
+              f"{cfg['stages']}): max|d| {err:.3e}, /max|f1|max|f2| "
+              f"{err / scale:.3e} (tolerance {tol:.0e}: a mean of {C} fp32 "
+              f"products in another order); second launch bit-equal: {same}")
+        require(got.shape == want.shape and err <= tol * scale,
+                f"K4 {what} [{B}, {C}, {H}, {W}] agrees with its plain version")
+        require(same, f"K4 {what} [{B}, {C}, {H}, {W}]: two launches bit-equal")
+        return got, cfg
+
+    def times(f1, f2, md, ds, os_, got):
+        B, C, H, W = f1.shape
+        K2, Ho, Wo = got.shape[1:]
+        ms = cuda_ms(lambda: local_correlation(f1, f2, md, ds, os_), reps=20)
+        g_ms = graph_ms(lambda: local_correlation(f1, f2, md, ds, os_))
+        n_bytes, n_flops = k4_bytes_flops(C, H, W, B, K2, Ho, Wo)
+        b_ms, by = bound_ms(n_bytes, n_flops)
+        return ms, g_ms, b_ms, by, n_bytes
+
     for name, (md, ds, os_, C, H, W) in CORR_AT_640x480.items():
         for B in (1, 8):
             f1, f2 = (torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32))
                       .to(dev) for _ in range(2))
-            got = local_correlation(f1, f2, md, ds, os_)
-            want = correlation_plain(f1, f2, md, ds, os_)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            scale = float(f1.abs().max() * f2.abs().max())
-            worst = max(worst, err)
-            print(f"K4 {name} {(md, ds, os_)} [{B}, {C}, {H}, {W}] -> "
-                  f"{tuple(got.shape)}: max|d| {err:.3e}, /max|f1|max|f2| "
-                  f"{err / scale:.3e} (tolerance {tol:.0e}: a mean of {C} fp32 "
-                  f"products in another order)")
-            require(got.shape == want.shape and err <= tol * scale,
-                    f"K4 {name} B={B} agrees with its plain version")
-        K2 = got.shape[1]
-        Ho, Wo = got.shape[2:]
-        ms = cuda_ms(lambda: local_correlation(f1, f2, md, ds, os_), reps=20)
-        g_ms = graph_ms(lambda: local_correlation(f1, f2, md, ds, os_))
-        # f1 (at the output stride) and f2 read once, the volume written
-        n_bytes = 4 * (C * B * Ho * Wo + C * B * H * W + K2 * B * Ho * Wo)
-        b_ms, by = bound_ms(n_bytes, 2 * C * K2 * B * Ho * Wo)
+            got, _ = check(f1, f2, md, ds, os_, name)
+        ms, g_ms, b_ms, by, n_bytes = times(f1, f2, md, ds, os_, got)
         line = (f"K4 {name} B=8: {ms:.4f} ms per launch, events (graph replay "
-                f"{g_ms:.4f} ms), bound {b_ms:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB)")
+                f"{g_ms:.4f} ms), bound {b_ms:.4f} ms by {by} ({n_bytes / 1e6:.1f} "
+                f"MB): {b_ms / g_ms:.1%} of it by graph")
         if name == "pwc":
             plain_ms = cuda_ms(lambda: correlation_plain(f1, f2, md, ds, os_), reps=5)
             line += f", plain {plain_ms:.4f} ms; no single PyTorch call computes it"
@@ -792,8 +924,26 @@ def k4_phase(torch, dev, seed=6) -> dict:
                      "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None}
         print(line)
-        del f1, f2, got, want
+        del f1, f2, got
+    levels = []
+    for level, (B, C, H, W) in zip(range(6, 1, -1), PWC_LEVELS_B1):
+        f1, f2 = (torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32))
+                  .to(dev) for _ in range(2))
+        got, cfg = check(f1, f2, 4, 1, 1, f"PWC-Net level {level}")
+        ms, g_ms, b_ms, by, n_bytes = times(f1, f2, 4, 1, 1, got)
+        print(f"K4 PWC-Net level {level} [{B}, {C}, {H}, {W}]: events {ms:.4f} ms "
+              f"per launch, graph replay {g_ms:.4f} ms (device time); bound "
+              f"{b_ms:.5f} ms by {by} ({n_bytes / 1e6:.3f} MB): {b_ms / g_ms:.1%} "
+              f"of it by graph")
+        levels.append({"shape": [B, C, H, W], "level": level, "ms": ms,
+                       "graph_ms": g_ms, "bound_ms": b_ms, "bound_by": by,
+                       "splits": cfg["splits"]})
+        del f1, f2, got
+    total = {k: sum(x[k] for x in levels) for k in ("ms", "graph_ms", "bound_ms")}
+    print(f"K4 PWC-Net's five B=1 levels together: events {total['ms']:.4f} ms, "
+          f"graph replay {total['graph_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms")
     entry["max_abs_err"] = worst
+    entry["pwc_b1_levels"] = levels
     return entry
 
 
@@ -979,8 +1129,8 @@ def main() -> int:
                          "PWC-Net estimate as Chrome traces into DIR")
     ap.add_argument("--variants", action="store_true",
                     help="instead of the phases after the build, time the "
-                         "launch choices of K3 and K2 apart and print them "
-                         "as one JSON line")
+                         "launch choices of K3, K2 and K4 apart and print "
+                         "them as one JSON line")
     args = ap.parse_args()
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
@@ -999,7 +1149,7 @@ def main() -> int:
     with phase("1 build"):
         build_phase()
     if args.variants:
-        with phase("variants of K3 and K2"):
+        with phase("variants of K3, K2 and K4"):
             times = variants_phase(torch, dev)
         print(json.dumps({"variants": times}))
         return 0

@@ -46,10 +46,10 @@ _SIGNATURES = {
     # stream
     "ofc_warp_bilinear": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _I, _P]),
-    # out_stride, max_disp -> shared-memory bytes of one block
-    "ofc_correlation_smem": (_I, [_I, _I]),
-    # f1, f2, out, B, C, H, W, max_disp, disp_stride, out_stride, stream
-    "ofc_correlation": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # f1, f2, out, work, B, C, H, W, max_disp, disp_stride, out_stride,
+    # tile_w, tile_h, taps, splits, chunk, window stride, 16-byte copies,
+    # stages, smem, stream
+    "ofc_correlation": (_I, [_P, _P, _P, _P] + [_I] * 16 + [_P]),
 }
 
 

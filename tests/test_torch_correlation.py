@@ -87,3 +87,95 @@ def test_correlation_wrapper_checks_its_inputs():
         k4.local_correlation(f, f[..., :6], 4)
     with pytest.raises(TypeError, match="float32"):
         k4.local_correlation(f.double(), f.double(), 4)
+
+
+# ---------------------------------------------------------------- launch rule
+
+# PWC-Net's five correlations at 640x480 (640x512 inside), levels 6..2, B=1
+PWC_LEVELS_B1 = ((1, 196, 8, 10), (1, 128, 16, 20), (1, 96, 32, 40),
+                 (1, 64, 64, 80), (1, 32, 128, 160))
+
+
+def _blocks(cfg, B, H, W, max_disp, ds, os_):
+    """Blocks of one launch of ``cfg`` and the most the shape allows (one
+    per tile, tap row and split of MIN_SPLIT_CHANNELS channels)."""
+    K = 2 * (max_disp // ds) + 1
+    Ho, Wo = -(-H // os_), -(-W // os_)
+    tw, th = cfg["tile"]
+    tiles = B * -(-Wo // tw) * -(-Ho // th)
+    return tiles * -(-K // cfg["taps"]) * cfg["splits"], tiles * K
+
+
+def _shapes():
+    """(name, max_disp, ds, os, B, C, H, W): the B=1 PWC-Net levels, and
+    chip_smoke's B=1 and B=8 shapes of every configuration at 640x480."""
+    import chip_smoke
+    out = [(f"pwc_level{6 - i}", 4, 1, 1, *s) for i, s in enumerate(PWC_LEVELS_B1)]
+    for name, (md, ds, os_, C, H, W) in chip_smoke.CORR_AT_640x480.items():
+        out += [(name, md, ds, os_, B, C, H, W) for B in (1, 8)]
+    return out
+
+
+@pytest.mark.parametrize("case", _shapes(), ids=lambda c: f"{c[0]}-B{c[4]}")
+def test_k4_launch_config_fills_the_card(case):
+    """Every SM gets a block, or as many blocks as the tiles, tap rows and
+    channel splits of the shape allow; the block stays within the kernel's
+    256 threads and 48 KB of shared memory."""
+    _, md, ds, os_, B, C, H, W = case
+    cfg = k4.launch_config(B, C, H, W, md, ds, os_)
+    blocks, tap_rows = _blocks(cfg, B, H, W, md, ds, os_)
+    most = tap_rows * max(1, C // k4.MIN_SPLIT_CHANNELS)
+    assert blocks >= min(k4.H100_SMS, most), (cfg, blocks)
+    assert cfg["threads"] <= k4.MAX_THREADS
+    assert cfg["smem"] <= k4.SMEM_LIMIT
+    assert 1 <= cfg["splits"] <= C and cfg["chunk"] >= 1
+    assert cfg["tile"][0] % k4.STRIP == 0
+
+
+def test_k4_launch_config_at_pwc_level6():
+    """Level 6 (8 x 10 outputs, 196 channels) is one pixel tile: the grid
+    takes its blocks from tap rows and channel splits."""
+    cfg = k4.launch_config(1, 196, 8, 10, 4, 1, 1)
+    blocks, _ = _blocks(cfg, 1, 8, 10, 4, 1, 1)
+    assert cfg["tile"] == (12, 4) and cfg["splits"] > 1
+    assert blocks >= k4.H100_SMS
+
+
+@pytest.mark.parametrize("C", [1, 4, 37, 196, 197])
+def test_k4_channel_splits_cover_C(C):
+    """The splits' channel ranges tile [0, C) in order, none empty, ragged C
+    included; the rule's split counts keep MIN_SPLIT_CHANNELS per split."""
+    for splits in sorted(s for s in {1, 2, 3, 7, 16, 49, C // 2, C} if 1 <= s <= C):
+        r = k4.channel_ranges(C, splits)
+        assert r[0][0] == 0 and r[-1][1] == C
+        assert all(a < b for a, b in r)
+        assert all(r[i][1] == r[i + 1][0] for i in range(len(r) - 1))
+    for B, H, W in ((1, 8, 10), (1, 45, 29), (8, 128, 160)):
+        cfg = k4.launch_config(B, C, H, W, 4, 1, 1)
+        assert cfg["splits"] == 1 or C // cfg["splits"] >= k4.MIN_SPLIT_CHANNELS
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_k4_shared_memory_fits_in_every_configuration(name):
+    """At every shape the rule is asked (the zoo's level sizes, ragged sizes
+    and channel counts), the launch fits 48 KB of shared memory and 256
+    threads, and its window stride holds the staged columns and the last
+    strip's 16-byte reads."""
+    md, ds, os_ = CONFIGS[name]
+    K = 2 * (md // ds) + 1
+    for B, C, H, W in ((1, 37, 29, 45), (2, 197, 10, 10), (8, 64, 240, 320),
+                       (1, 196, 8, 10), (8, 32, 128, 160), (1, 3, 1, 1)):
+        cfg = k4.launch_config(B, C, H, W, md, ds, os_)
+        assert cfg["smem"] <= k4.SMEM_LIMIT and cfg["threads"] <= k4.MAX_THREADS
+        wc, ws = k4._window(cfg["tile"][0], K, ds // os_)
+        assert cfg["ws"] == ws >= wc and ws % 4 == 0 and wc % 4 == 0
+        assert cfg == k4.make_config(md, ds, os_, cfg["tile"], cfg["taps"],
+                                     cfg["splits"], cfg["chunk"], cfg["stages"])
+
+
+def test_k4_launch_config_is_cached_and_checks_strides():
+    """The wrapper computes a shape's configuration once; a disp_stride that
+    is not a multiple of out_stride has no kernel."""
+    assert k4.launch_config(8, 32, 128, 160, 4) is k4.launch_config(8, 32, 128, 160, 4)
+    with pytest.raises(ValueError, match="multiple of out_stride"):
+        k4.make_config(4, 1, 2, (32, 4), 3, 1, 8)

@@ -255,6 +255,74 @@ def test_correlation_kernel_matches_plain(name, cuda):
     assert (got - want).abs().max() <= 1e-6 * f1.abs().max() * f2.abs().max()
 
 
+# PWC-Net's five correlations at 640x480, B=1 (levels 6..2), and a ragged
+# 197 channels at level 6's width
+K4_B1_SHAPES = [(1, 196, 8, 10), (1, 128, 16, 20), (1, 96, 32, 40),
+                (1, 64, 64, 80), (1, 32, 128, 160), (1, 197, 8, 10)]
+
+
+@pytest.mark.parametrize("shape", K4_B1_SHAPES)
+def test_correlation_kernel_at_pwc_b1_levels(shape, cuda):
+    """K4 at the stream node's shapes, where the grid splits taps and
+    channels (level 6 is one pixel tile): against the plain version at
+    1e-6 of max|f1| max|f2| (a mean of C fp32 products in another order),
+    one counted launch a call."""
+    rng = np.random.default_rng(11)
+    f1, f2 = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+              for _ in range(2))
+    before = k4.local_correlation.launches
+    got = k4.local_correlation(f1, f2, 4)
+    want = k4.correlation_plain(f1, f2, 4)
+    torch.cuda.synchronize()
+    assert k4.local_correlation.launches == before + 1
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-6 * f1.abs().max() * f2.abs().max()
+
+
+@pytest.mark.parametrize("shape,config", [((1, 196, 8, 10), (4, 1, 1)),
+                                          ((8, 32, 128, 160), (4, 1, 1)),
+                                          ((2, 37, 29, 45), (6, 2, 2))])
+def test_correlation_kernel_is_deterministic(shape, config, cuda):
+    """A fixed summation order (channels, then splits, no atomics): two
+    launches on the same inputs are equal bit for bit."""
+    rng = np.random.default_rng(12)
+    f1, f2 = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+              for _ in range(2))
+    first = k4.local_correlation(f1, f2, *config)
+    for _ in range(3):
+        assert torch.equal(k4.local_correlation(f1, f2, *config), first)
+
+
+@pytest.mark.parametrize("name", sorted(CORR_CONFIGS))
+def test_correlation_variants_agree(name, cuda):
+    """Every launch choice ``chip_smoke.py --variants`` times, and one or two
+    buffers of 1 or 3 channels (a split of one chunk included), agree
+    with the plain version at 1e-6 of max|f1| max|f2|; those with the chosen
+    channel splits equal the chosen launch bit for bit."""
+    import chip_smoke
+
+    max_disp, ds, os_ = CORR_CONFIGS[name]
+    rng = np.random.default_rng(13)
+    for B, C, H, W in ((2, 37, 29, 45), (1, 196, 8, 10), (1, 24, 32, 40)):
+        f1, f2 = (torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32))
+                  .to(cuda) for _ in range(2))
+        chosen = k4.launch_config(B, C, H, W, max_disp, ds, os_)
+        want = k4.launch(f1, f2, max_disp, ds, os_, chosen)
+        plain = k4.correlation_plain(f1, f2, max_disp, ds, os_)
+        tol = 1e-6 * f1.abs().max() * f2.abs().max()
+        variants = list(chip_smoke.k4_variant_configs(max_disp, ds, os_, C, W,
+                                                      chosen).values())
+        variants += [k4.make_config(max_disp, ds, os_, chosen["tile"], chosen["taps"],
+                                    splits, chunk, stages)
+                     for splits in (1, 4) for chunk in (1, 3) for stages in (1, 2)]
+        for cfg in variants:
+            got = k4.launch(f1, f2, max_disp, ds, os_, cfg)
+            torch.cuda.synchronize()
+            assert (got - plain).abs().max() <= tol, cfg
+            if cfg["splits"] == chosen["splits"]:
+                assert torch.equal(got, want), cfg
+
+
 def test_kernels_refuse_a_gradient(cuda):
     """K3 and K4 have no backward yet: on the card they raise rather than
     drop the gradient, and run under no_grad."""
