@@ -26,29 +26,47 @@ seconds:
    uint8 BGR frames with a known shift; VelocityEstimator m/s; step_many ==
    step bit for bit; per-frame latency (p50, p99) over a 400-frame window;
 6. K3 warp_bilinear vs its plain version, zeros and edge padding, mask off
-   and on, at PWC-Net's level 2 (B=8), on Farneback's 720p planes (B=6) and
-   at PWC-Net's four warps at B=1, with flows that put taps out of the
-   image and a column that straddles the mask threshold; timed beside its
-   bound and F.grid_sample at each shape;
+   and on, at PWC-Net's level 2 (B=8), on Farneback's 720p planes (B=6), at
+   PWC-Net's four warps at B=1 and at LiteFlowNet's and LFN3's B=1 shapes
+   (LFN3's flow deformation at C=2, the image warp at C=3, LiteFlowNet's
+   level-2 feature warp at C=64), with flows that put taps out of the image
+   and a column that straddles the mask threshold; timed beside its bound
+   and F.grid_sample at each shape;
 7. K4 local_correlation vs its plain version in the six configurations of
    the model zoo, at the channels and level sizes each model has at
-   640x480, B=1 and B=8, and at PWC-Net's five B=1 levels; each launch run
-   twice and the two held bit for bit; timed beside its bound at B=8 and at
-   each of the five levels;
+   640x480, B=1 and B=8, and at every correlation PWC-Net (five),
+   LiteFlowNet (five) and LFN3 (six) make at B=1; each launch run twice and
+   the two held bit for bit; timed beside its bound at B=8 and at each B=1
+   correlation;
 8. the PWC-Net path at 640x480 on seeded weights (the packaged npz is not
    read, so the run needs no weights file): K3 and K4 launches per estimate call; the
    kernel path vs the plain path on the card and vs the CPU; latency at
    B=1, pairs/s at B=8, and a 200-frame uint8 BGR stream through
    make_model_backend and VelocityEstimator (p50, p99 per frame); and the
    served flow (cuDNN TF32 convolutions, PyTorch's default) against fp32
-   convolutions on the same pair.
+   convolutions on the same pair;
+9. and 10. the LiteFlowNet3 and LiteFlowNet paths at 640x480 on seeded
+   weights, each with phase 8's checks: K3 and K4 launches per estimate
+   (13 and 6, 14 and 5), kernel path vs plain path and card vs CPU, the
+   served convolutions vs fp32, latency at B=1 and pairs/s at B=8;
+11. the device-resident model stream: FusedModelStream over LFN3 at 640x480
+   on 200 uint8 BGR frames, p50 and p99 per frame, du against
+   make_model_backend + VelocityEstimator on the same frames, step_many ==
+   step bit for bit, and one upload and one scalar download per frame
+   counted under the profiler.
+
+Seeded weights cannot measure accuracy: the nets' accuracy is held on the
+CPU against the JAX package with the packaged npz
+(tests/test_torch_pwcnet.py, test_torch_liteflownet*.py).  Here they
+measure the kernels' path against the plain one, the card against the CPU,
+and time.
 
 Kernel times are CUDA events around back-to-back wrapper calls (``ms``,
 what a caller waits for, the wrapper's host time included) and device time
 by CUDA-graph replay (``graph_ms``: at the B=1 shapes a kernel is shorter
 than its own Python dispatch).
 
-Phases 4, 5 and 8 also run their path once under torch.profiler: device
+Phases 4, 5 and 8-11 also run their path once under torch.profiler: device
 busy time, idle share, how much of the idle time the device spent waiting
 for the host to launch its next operation, and the stream synchronizations
 and host-to-device copies made.  ``--trace DIR`` keeps those profiles there
@@ -172,6 +190,27 @@ def plane_waves(torch, H: int, W: int, shifts, seed: int, device) -> "torch.Tens
             f += amp[i] * torch.sin(kx[i] * (x - dx) + ky[i] * (y - dy) + phi[i])
         out[t] = f
     return out
+
+
+GAINS_BGR = (0.9, 1.0, 1.1)
+
+
+def image_pairs(torch, h, w, batch, device, seed=8):
+    """``batch`` pairs [batch, h, w, 3] in [0, 1] of a band-limited texture
+    moved (1.5, 0.5) px from each image to its pair."""
+    g = plane_waves(torch, h, w, [(1.5 * t, 0.5 * t) for t in range(2 * batch)],
+                    seed=seed, device=device)
+    img = (g[..., None] * torch.tensor(GAINS_BGR, device=device) / 255.0).clamp(0, 1)
+    return img[0::2].contiguous(), img[1::2].contiguous()
+
+
+def bgr_frames(torch, H, W, n, dx, seed, device) -> np.ndarray:
+    """``n`` uint8 BGR camera frames [n, H, W, 3] in host memory, a texture
+    moving ``dx`` px per frame, as a capture loop hands them on."""
+    g = plane_waves(torch, H, W, [(dx * t, 0.0) for t in range(n)], seed=seed,
+                    device=device)
+    gains = torch.tensor(GAINS_BGR, device=device)
+    return (g[..., None] * gains).clamp(0, 255).round().to(torch.uint8).cpu().numpy()
 
 
 def device_phase(torch) -> dict:
@@ -417,12 +456,13 @@ def host_wait(trace_path: str) -> tuple[float, float]:
     return idle / 1e3, waited / 1e3
 
 
-def profile_path(torch, label: str, fn, trace_dir, trace_name: str) -> None:
+def profile_path(torch, label: str, fn, trace_dir, trace_name: str) -> dict | None:
     """Where the time of ``fn()`` goes, under torch.profiler: device time by
     kernel name, the device's busy share of the wall time, how long the idle
     device waited on the host's launches, and the host's stream
-    synchronizations and host-to-device copies (each pageable upload also
-    synchronizes the stream)."""
+    synchronizations and copies each way (each pageable upload also
+    synchronizes the stream).  Returns those counts and times, or None when
+    the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -445,14 +485,17 @@ def profile_path(torch, label: str, fn, trace_dir, trace_name: str) -> None:
     syncs = sum(e.count for e in events if e.device_type == DeviceType.CPU
                 and e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     h2d = sum(e.count for e in kernels if "HtoD" in e.key)
+    d2h = sum(e.count for e in kernels if "DtoH" in e.key)
     if not kernels:
         print(f"profiler, {label}: no device time recorded; breakdown not measured")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profiler, {label}: {sum(e.count for e in kernels)} device "
+    n_ops = sum(e.count for e in kernels)
+    print(f"profiler, {label}: {n_ops} device "
           f"operations, busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on); "
-          f"{syncs} stream synchronizations, {h2d} host-to-device copies")
+          f"{syncs} stream synchronizations, {h2d} host-to-device and {d2h} "
+          f"device-to-host copies")
     print(f"  idle between device operations {idle_ms:.3f} ms, of it "
           f"{waited_ms:.3f} ms with the next launch not yet issued by the host")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -465,6 +508,9 @@ def profile_path(torch, label: str, fn, trace_dir, trace_name: str) -> None:
             ours.append(f"{name} {sum(e.self_device_time_total for e in mine) / 1e3:.3f} "
                         f"ms x{sum(e.count for e in mine)}")
     print(f"  the port's kernels: {', '.join(ours) or 'none'}")
+    return {"ops": n_ops, "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "idle_ms": idle_ms, "host_wait_ms": waited_ms, "syncs": syncs,
+            "h2d": h2d, "d2h": d2h}
 
 
 def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
@@ -476,13 +522,7 @@ def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
         FusedFarnebackStream, make_fused_farneback_backend)
     from opticalflowcontainer_tpu_torch.runtime.velocity import VelocityEstimator
 
-    # uint8 BGR camera frames in host memory, as a capture loop hands them on
-    gray = plane_waves(torch, H, W, [(t * dx, 0.0) for t in range(n)], seed=4,
-                       device=dev)
-    gains = torch.tensor([0.9, 1.0, 1.1], device=dev)  # B, G, R
-    frames = (gray[..., None] * gains).clamp(0, 255).round().to(torch.uint8)
-    frames = frames.cpu().numpy()
-    del gray
+    frames = bgr_frames(torch, H, W, n, dx, seed=4, device=dev)
     s = FusedFarnebackStream(device=dev)
     s.warmup(frames[0])
     farneback_update.launches = 0
@@ -533,11 +573,14 @@ def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
     require(abs(du_b - dx) < 0.1, f"backend du {du_b:.4f} near the shift")
 
 
-# [B, C, H, W] of every K3 launch the main paths make at 640x480, first the
-# headline: PWC-Net's level-2 warp at B=8, Farneback's 720p planes (B=6), and
-# PWC-Net's four warps at B=1 (levels 5, 4, 3, 2), the stream node's unit
+# [B, C, H, W] of the K3 launches the main paths make at 640x480, first the
+# headline: PWC-Net's level-2 warp at B=8, Farneback's 720p planes (B=6),
+# PWC-Net's four warps at B=1 (levels 5, 4, 3, 2), the stream node's unit,
+# then LFN3's level-3 flow deformation (C=2), LiteFlowNet's level-2 image
+# warp (C=3) and level-2 feature warp (C=64) at B=1
 K3_SHAPES = ((8, 32, 128, 160), (6, 5, 720, 1280), (1, 128, 16, 20),
-             (1, 96, 32, 40), (1, 64, 64, 80), (1, 32, 128, 160))
+             (1, 96, 32, 40), (1, 64, 64, 80), (1, 32, 128, 160),
+             (1, 2, 120, 160), (1, 3, 240, 320), (1, 64, 240, 320))
 
 
 def k3_inputs(torch, rng, B, C, H, W, dev):
@@ -854,11 +897,32 @@ CORR_AT_640x480 = {
 PWC_LEVELS_B1 = ((1, 196, 8, 10), (1, 128, 16, 20), (1, 96, 32, 40),
                  (1, 64, 64, 80), (1, 32, 128, 160))
 
+# (what, (max_disp, disp_stride, out_stride), [B, C, H, W]) of every
+# correlation an estimate call makes at 640x480, B=1: PWC-Net's five,
+# LiteFlowNet's five (level 2 after its 1x1 feat conv to 64 channels) and
+# LFN3's six (four cross, two self)
+CORR_B1 = (
+    tuple((f"PWC-Net level {6 - i}", (4, 1, 1), s)
+          for i, s in enumerate(PWC_LEVELS_B1))
+    + (("LiteFlowNet level 6", (3, 1, 1), (1, 192, 15, 20)),
+       ("LiteFlowNet level 5", (3, 1, 1), (1, 128, 30, 40)),
+       ("LiteFlowNet level 4", (3, 1, 1), (1, 96, 60, 80)),
+       ("LiteFlowNet level 3", (6, 2, 2), (1, 64, 120, 160)),
+       ("LiteFlowNet level 2", (6, 2, 2), (1, 64, 240, 320)),
+       ("LFN3 level 6", (4, 1, 1), (1, 192, 15, 20)),
+       ("LFN3 level 5", (4, 1, 1), (1, 128, 30, 40)),
+       ("LFN3 level 4", (4, 1, 1), (1, 96, 60, 80)),
+       ("LFN3 level 3", (4, 1, 1), (1, 64, 120, 160)),
+       ("LFN3 self level 4", (6, 2, 1), (1, 96, 60, 80)),
+       ("LFN3 self level 3", (8, 2, 1), (1, 64, 120, 160))))
 
-def k4_bytes_flops(C, H, W, B, K2, Ho, Wo) -> tuple[int, int]:
-    """Bytes (f1 at the output stride and f2 read once, the volume written)
-    and flops of one correlation."""
-    return (4 * (C * B * Ho * Wo + C * B * H * W + K2 * B * Ho * Wo),
+
+def k4_bytes_flops(C, H, W, B, K2, Ho, Wo, same=False) -> tuple[int, int]:
+    """Bytes (f1 at the output stride and f2 read once, the volume written;
+    a self-correlation, ``same``, reads its one input once) and flops of one
+    correlation."""
+    f1 = 0 if same else C * B * Ho * Wo
+    return (4 * (f1 + C * B * H * W + K2 * B * Ho * Wo),
             2 * C * K2 * B * Ho * Wo)
 
 
@@ -902,7 +966,7 @@ def k4_phase(torch, dev, seed=6) -> dict:
         K2, Ho, Wo = got.shape[1:]
         ms = cuda_ms(lambda: local_correlation(f1, f2, md, ds, os_), reps=20)
         g_ms = graph_ms(lambda: local_correlation(f1, f2, md, ds, os_))
-        n_bytes, n_flops = k4_bytes_flops(C, H, W, B, K2, Ho, Wo)
+        n_bytes, n_flops = k4_bytes_flops(C, H, W, B, K2, Ho, Wo, f1 is f2)
         b_ms, by = bound_ms(n_bytes, n_flops)
         return ms, g_ms, b_ms, by, n_bytes
 
@@ -925,25 +989,32 @@ def k4_phase(torch, dev, seed=6) -> dict:
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None}
         print(line)
         del f1, f2, got
-    levels = []
-    for level, (B, C, H, W) in zip(range(6, 1, -1), PWC_LEVELS_B1):
+    b1 = {}
+    for what, (md, ds, os_), (B, C, H, W) in CORR_B1:
         f1, f2 = (torch.from_numpy(rng.standard_normal((B, C, H, W), np.float32))
                   .to(dev) for _ in range(2))
-        got, cfg = check(f1, f2, 4, 1, 1, f"PWC-Net level {level}")
-        ms, g_ms, b_ms, by, n_bytes = times(f1, f2, 4, 1, 1, got)
-        print(f"K4 PWC-Net level {level} [{B}, {C}, {H}, {W}]: events {ms:.4f} ms "
+        # a self-correlation passes one tensor as f1 and f2
+        if "self" in what:
+            f2 = f1
+        got, cfg = check(f1, f2, md, ds, os_, what)
+        ms, g_ms, b_ms, by, n_bytes = times(f1, f2, md, ds, os_, got)
+        print(f"K4 {what} {(md, ds, os_)} [{B}, {C}, {H}, {W}]: events {ms:.4f} ms "
               f"per launch, graph replay {g_ms:.4f} ms (device time); bound "
               f"{b_ms:.5f} ms by {by} ({n_bytes / 1e6:.3f} MB): {b_ms / g_ms:.1%} "
               f"of it by graph")
-        levels.append({"shape": [B, C, H, W], "level": level, "ms": ms,
-                       "graph_ms": g_ms, "bound_ms": b_ms, "bound_by": by,
-                       "splits": cfg["splits"]})
+        net = what.split(" level")[0].split(" self")[0]
+        b1.setdefault(net, []).append(
+            {"what": what, "config": [md, ds, os_], "shape": [B, C, H, W],
+             "ms": ms, "graph_ms": g_ms, "bound_ms": b_ms, "bound_by": by,
+             "splits": cfg["splits"]})
         del f1, f2, got
-    total = {k: sum(x[k] for x in levels) for k in ("ms", "graph_ms", "bound_ms")}
-    print(f"K4 PWC-Net's five B=1 levels together: events {total['ms']:.4f} ms, "
-          f"graph replay {total['graph_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms")
+    for net, levels in b1.items():
+        total = {k: sum(x[k] for x in levels) for k in ("ms", "graph_ms", "bound_ms")}
+        print(f"K4 {net}'s {len(levels)} B=1 correlations together: events "
+              f"{total['ms']:.4f} ms, graph replay {total['graph_ms']:.4f} ms, "
+              f"bound {total['bound_ms']:.5f} ms")
     entry["max_abs_err"] = worst
-    entry["pwc_b1_levels"] = levels
+    entry["b1_correlations"] = b1
     return entry
 
 
@@ -969,41 +1040,64 @@ def seeded_pwcnet(torch, seed: int, device):
     return model.to(device).eval()
 
 
+def seeded_liteflownet(torch, cls, seed: int, device):
+    """LiteFlowNet or LiteFlowNet3 (``cls``) at full width, seeded: every
+    convolution He-normal (std sqrt(2 / fan_in)) from a seeded
+    torch.Generator with zero biases, as seeded_pwcnet; the bias-free 2x
+    deconvolutions (upflow, upcorr, upconf) bilinear upsampling kernels;
+    and each Regularization's scale_x / scale_y 1x1 convs all ones, so that
+    the new flow is a normalized weighted average of its neighbourhood.
+    Random deconvolutions and scale convs would scramble the flow at every
+    one of the five (four) levels.  At 640x480 this gives flows of a few
+    px to ~10 px (phases 9 and 10 print the range)."""
+    g = torch.Generator().manual_seed(seed)
+    model = cls()
+    bilinear = torch.tensor([0.25, 0.75, 0.75, 0.25])
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                m.weight.copy_((bilinear[:, None] * bilinear).expand_as(m.weight))
+            elif isinstance(m, torch.nn.Conv2d):
+                if name.rsplit(".", 1)[-1] in ("scale_x", "scale_y"):
+                    m.weight.fill_(1.0)
+                else:
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                                   * (2.0 / m.weight[0].numel()) ** 0.5)
+                m.bias.zero_()
+    return model.to(device).eval()
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """The PWC-Net path with K3 and K4 replaced by their plain versions
+    """The model zoo's paths with K3 and K4 replaced by their plain versions
     (for comparing the kernels' path with the plain one on the card)."""
     from unittest import mock
 
-    from opticalflowcontainer_tpu_torch.models import pwcnet
+    from opticalflowcontainer_tpu_torch.models import liteflownet, liteflownet3, pwcnet
     from opticalflowcontainer_tpu_torch.ops import correlation as k4
     from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
 
-    with mock.patch.object(k3, "warp_bilinear", k3.warp_bilinear_plain), \
-            mock.patch.object(pwcnet, "local_correlation", k4.correlation_plain):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(k3, "warp_bilinear",
+                                              k3.warp_bilinear_plain))
+        for mod in (pwcnet, liteflownet, liteflownet3):
+            stack.enter_context(mock.patch.object(mod, "local_correlation",
+                                                  k4.correlation_plain))
         yield
 
 
-def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
-    import functools
-
-    from opticalflowcontainer_tpu_torch.models.pwcnet import estimate
+def net_phase(torch, dev, trace_dir, label, model, cpu_model, estimate,
+              expect: dict, H=480, W=640) -> dict:
+    """One model's estimate path at HxW on the card: K3 and K4 launches per
+    call against ``expect``, the kernels' path against the plain path on the
+    card and the card against the CPU (``cpu_model``, the same weights) at
+    192x128, the served convolutions against fp32 ones, B=1 latency, B=8
+    pairs/s and one call under the profiler.  Returns the launches."""
     from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
     from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
-    from opticalflowcontainer_tpu_torch.runtime.nodes import make_model_backend
-    from opticalflowcontainer_tpu_torch.runtime.velocity import VelocityEstimator
 
-    model = seeded_pwcnet(torch, seed, dev)
     n_params = sum(p.numel() for p in model.parameters())
-    gains = torch.tensor([0.9, 1.0, 1.1], device=dev)  # B, G, R
-
-    def pair(h, w, batch, device):
-        g = plane_waves(torch, h, w, [(1.5 * t, 0.5 * t) for t in range(2 * batch)],
-                        seed=8, device=device)
-        img = (g[..., None] * gains.to(device) / 255.0).clamp(0, 1)
-        return img[0::2].contiguous(), img[1::2].contiguous()
-
-    i1, i2 = pair(H, W, 1, dev)
+    i1, i2 = image_pairs(torch, H, W, 1, dev)
     estimate(model, i1, i2)  # warm-up: library load, cuDNN heuristics
     torch.cuda.synchronize()
     warp_bilinear.launches = 0
@@ -1012,10 +1106,12 @@ def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
     torch.cuda.synchronize()
     launches = {"warp_bilinear": warp_bilinear.launches,
                 "local_correlation": local_correlation.launches}
-    print(f"PWC-Net ({n_params} parameters, seeded) one estimate call at "
-          f"{W}x{H} launched {launches} (expected 4 and 5)")
-    require(launches == {"warp_bilinear": 4, "local_correlation": 5},
-            "each estimate call runs 4 masked warps and 5 correlations")
+    print(f"{label} ({n_params} parameters, seeded) one estimate call at "
+          f"{W}x{H} launched {launches} (expected {expect['warp_bilinear']} and "
+          f"{expect['local_correlation']})")
+    require(launches == expect,
+            f"each {label} estimate call runs {expect['warp_bilinear']} warps and "
+            f"{expect['local_correlation']} correlations")
     require(tuple(flow.shape) == (1, H, W, 2), f"flow shape {tuple(flow.shape)}")
     require(bool(torch.isfinite(flow).all()), "flow is finite")
     print(f"flow |u|,|v| mean {flow.abs().mean((0, 1, 2)).tolist()}, max "
@@ -1048,9 +1144,9 @@ def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
               f"allows a masked-warp threshold flip)")
         require(float(d.mean()) <= mean_bar and float(d.max()) <= max_bar,
                 "the kernels' path agrees with the plain path")
-        s1, s2 = pair(128, 192, 1, "cpu")
+        s1, s2 = image_pairs(torch, 128, 192, 1, "cpu")
         on_card = estimate(model, s1, s2).cpu()
-        on_cpu = estimate(seeded_pwcnet(torch, seed, "cpu"), s1, s2)
+        on_cpu = estimate(cpu_model, s1, s2)
         d = (on_card - on_cpu).abs()
         print(f"192x128 card vs CPU (plain versions, fp32): mean|d| "
               f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e} px (bars "
@@ -1078,23 +1174,36 @@ def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
           f"{np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms "
           f"(PyTorch defaults, cuDNN TF32 {tf32}); with fp32 convolutions "
           f"median {np.median(fp32_ms):.3f} ms")
-    b1, b2 = pair(H, W, 8, dev)
+    b1, b2 = image_pairs(torch, H, W, 8, dev)
     torch.cuda.reset_peak_memory_stats()
     lat8 = latency(b1, b2, 10)
     print(f"{W}x{H} estimate at B=8: median {np.median(lat8):.3f} ms per call, "
           f"{8e3 / np.median(lat8):.2f} pairs/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del b1, b2
+    profile_path(torch, f"one {label} estimate at B=1",
+                 lambda: estimate(model, i1, i2), trace_dir,
+                 label.lower().replace("-", ""))
+    return launches
 
-    profile_path(torch, "one PWC-Net estimate at B=1",
-                 lambda: estimate(model, i1, i2), trace_dir, "pwcnet")
+
+def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
+    import functools
+
+    from opticalflowcontainer_tpu_torch.models.pwcnet import estimate
+    from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
+    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
+    from opticalflowcontainer_tpu_torch.runtime.nodes import make_model_backend
+    from opticalflowcontainer_tpu_torch.runtime.velocity import VelocityEstimator
+
+    model = seeded_pwcnet(torch, seed, dev)
+    launches = net_phase(torch, dev, trace_dir, "PWC-Net", model,
+                         seeded_pwcnet(torch, seed, "cpu"), estimate,
+                         {"warp_bilinear": 4, "local_correlation": 5}, H, W)
 
     # the stream: uint8 BGR camera frames in host memory through the
     # learned-model backend into the velocity estimator
-    g = plane_waves(torch, H, W, [(1.5 * t, 0.0) for t in range(n)], seed=9,
-                    device=dev)
-    frames = (g[..., None] * gains).clamp(0, 255).round().to(torch.uint8).cpu().numpy()
-    del g
+    frames = bgr_frames(torch, H, W, n, 1.5, seed=9, device=dev)
     backend = make_model_backend(functools.partial(estimate, model), device=dev)
     vel = VelocityEstimator()
     backend(frames[0], frames[1], 1 / 30)  # warm-up
@@ -1121,12 +1230,121 @@ def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
     return launches
 
 
+# K3 and K4 launches per estimate call, counted from the reference's code:
+# LiteFlowNet warps feat2 in Matching at levels 5-2 (4), in Subpixel (5)
+# and img2 in Regularization (5), and correlates at its five levels; LFN3
+# warps 1+2+2 in Matching (the flow deformation at levels 4 and 3), 4 in
+# Subpixel and 4 in Regularization, and correlates 4 cross + 2 self
+LFN_LAUNCHES = {"warp_bilinear": 14, "local_correlation": 5}
+LFN3_LAUNCHES = {"warp_bilinear": 13, "local_correlation": 6}
+
+
+def lfn_phase(torch, dev, trace_dir, three: bool, seed=11) -> dict:
+    """Phase 9 (LFN3, ``three``) or 10 (LiteFlowNet) at 640x480."""
+    from opticalflowcontainer_tpu_torch.models import liteflownet, liteflownet3
+
+    mod, cls, label, expect = (
+        (liteflownet3, liteflownet3.LiteFlowNet3, "LFN3", LFN3_LAUNCHES) if three
+        else (liteflownet, liteflownet.LiteFlowNet, "LiteFlowNet", LFN_LAUNCHES))
+    return net_phase(torch, dev, trace_dir, label,
+                     seeded_liteflownet(torch, cls, seed, dev),
+                     seeded_liteflownet(torch, cls, seed, "cpu"), mod.estimate,
+                     expect)
+
+
+def model_stream_phase(torch, dev, trace_dir, H=480, W=640, n=201, dx=1.5,
+                       seed=11) -> dict:
+    """FusedModelStream over LFN3: one uint8 frame up and one scalar down a
+    frame, against make_model_backend (the flow field to numpy) and
+    VelocityEstimator on the same frames."""
+    import functools
+
+    from opticalflowcontainer_tpu_torch.models.liteflownet3 import LiteFlowNet3, estimate
+    from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
+    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
+    from opticalflowcontainer_tpu_torch.runtime.nodes import make_model_backend
+    from opticalflowcontainer_tpu_torch.runtime.velocity import VelocityEstimator
+
+    model = seeded_liteflownet(torch, LiteFlowNet3, seed, dev)
+    frames = bgr_frames(torch, H, W, n, dx, seed=12, device=dev)
+    s = FusedModelStream(model, estimate, device=dev)
+    s.warmup(frames[0])
+    warp_bilinear.launches = 0
+    local_correlation.launches = 0
+    require(s.step(frames[0]) is None, "first frame seeds the state")
+    dus, lat = [], []
+    for f in frames[1:]:
+        t0 = time.perf_counter()
+        du = float(s.step(f))  # syncs
+        lat.append((time.perf_counter() - t0) * 1e3)
+        dus.append(du)
+    launches = {"warp_bilinear": warp_bilinear.launches,
+                "local_correlation": local_correlation.launches}
+    want = {k: v * (n - 1) for k, v in LFN3_LAUNCHES.items()}
+    lat = np.array(lat)
+    print(f"{W}x{H} LFN3 FusedModelStream, {n - 1} uint8 BGR frames (host clock, "
+          f"numpy frame to synced du): p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms, mean {lat.mean():.3f} ms, min "
+          f"{lat.min():.3f} ms, max {lat.max():.3f} ms; du {min(dus):.4f} .. "
+          f"{max(dus):.4f} px; launches {launches} (expected {want})")
+    require(launches == want, "the stream ran both kernels on every frame")
+    require(all(np.isfinite(dus)), "the stream's du is finite")
+
+    # the same frames through the flow-node backend that brings the flow
+    # field back to numpy, into VelocityEstimator (1 m per px, no
+    # smoothing, so its vx * dt is the mean u)
+    backend = make_model_backend(functools.partial(estimate, model), device=dev)
+    vel = VelocityEstimator(pixel_to_meter=1.0, smooth_window=1)
+    dt = 1 / 30
+    backend(frames[0], frames[1], dt)  # warm-up
+    ref, ref_lat = [], []
+    for prev, cur in zip(frames[:-1], frames[1:]):
+        t0 = time.perf_counter()
+        vx, _, _ = vel.update(backend(prev, cur, dt), dt)
+        ref_lat.append((time.perf_counter() - t0) * 1e3)
+        ref.append(vx * dt)
+    d = np.abs(np.array(dus) - np.array(ref))
+    bar = 1e-3
+    print(f"du vs make_model_backend + VelocityEstimator on the same frames: "
+          f"max|d| {d.max():.3e}, mean|d| {d.mean():.3e} px (bar {bar} px: the "
+          f"same estimate on the same card; the stream scales frames by the "
+          f"fp32 reciprocal of 255 and takes the mean of u on the card, the "
+          f"backend divides by 255 and numpy takes the mean); that path p50 "
+          f"{np.percentile(ref_lat, 50):.3f} ms, p99 "
+          f"{np.percentile(ref_lat, 99):.3f} ms per frame")
+    require(d.max() <= bar, "the fused stream's du agrees with the flow-node path")
+
+    k = 8
+    s1 = FusedModelStream(model, estimate, device=dev)
+    s1.step(frames[0])
+    one_by_one = torch.stack([s1.step(f) for f in frames[1:k + 1]])
+    s2 = FusedModelStream(model, estimate, device=dev)
+    s2.step(frames[0])
+    chunk = s2.step_many(frames[1:k + 1])
+    require(torch.equal(chunk, one_by_one), "step_many == step bit for bit")
+
+    def ten_steps():
+        for f in frames[k + 1:k + 11]:
+            float(s1.step(f))
+
+    # the profiler can miss the window's first upload (the Farneback
+    # stream's ten steps counted 9 in one run, 10 in another), so uploads
+    # are held to at most one a step
+    prof = profile_path(torch, "ten LFN3 stream steps", ten_steps, trace_dir,
+                        "lfn3_stream")
+    require(prof is not None and prof["d2h"] == 10 and prof["h2d"] <= 10,
+            "one scalar download and at most one frame upload per step")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", metavar="DIR",
-                    help="write the profiled clip call, stream steps and "
-                         "PWC-Net estimate as Chrome traces into DIR")
+                    help="write the profiled clip call, stream steps, model "
+                         "estimates and model stream steps as Chrome traces "
+                         "into DIR")
     ap.add_argument("--variants", action="store_true",
                     help="instead of the phases after the build, time the "
                          "launch choices of K3, K2 and K4 apart and print "
@@ -1158,7 +1376,7 @@ def main() -> int:
     with phase("3 K2 blur_solve vs plain"):
         k2 = k2_phase(torch, dev)
     with phase("4 720p T=7 clip (main path)"):
-        launches = clip_phase(torch, dev, args.trace)
+        by_path = {"farneback_clip": clip_phase(torch, dev, args.trace)}
     with phase("5 640x480 stream"):
         stream_phase(torch, dev, args.trace)
     with phase("6 K3 warp_bilinear vs plain"):
@@ -1166,9 +1384,18 @@ def main() -> int:
     with phase("7 K4 local_correlation vs plain"):
         k4 = k4_phase(torch, dev)
     with phase("8 PWC-Net 640x480 (correlation path)"):
-        launches.update(pwc_phase(torch, dev, args.trace))
+        by_path["pwcnet"] = pwc_phase(torch, dev, args.trace)
+    with phase("9 LiteFlowNet3 640x480"):
+        by_path["liteflownet3"] = lfn_phase(torch, dev, args.trace, three=True)
+    with phase("10 LiteFlowNet 640x480"):
+        by_path["liteflownet"] = lfn_phase(torch, dev, args.trace, three=False)
+    with phase("11 LFN3 FusedModelStream 640x480"):
+        by_path["liteflownet3_stream"] = model_stream_phase(torch, dev, args.trace)
+    # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()
+                                 if k["name"] in n}
+        k["launches"] = sum(k["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": device}))

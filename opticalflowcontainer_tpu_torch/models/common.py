@@ -5,17 +5,24 @@ torch-parity notes that converted weights depend on:
 - :class:`Conv` pads ``(k // 2) * dilation`` on every side explicitly, as
   the reference's flax ``Conv`` does (XLA ``SAME`` would pad a strided conv
   of an even input (0, 1) and shift it by one pixel).
-- :class:`Deconv` is ``ConvTranspose2d(kernel=4, stride=2, padding=1)``.
-  The reference stores its kernel as the spatially flipped HWIO kernel of
-  the equivalent input-dilated conv; ``models/convert.py`` carries it back.
+- :class:`Deconv` is ``ConvTranspose2d(kernel=4, stride=2, padding=1)``,
+  grouped or not, with or without a bias.  The reference stores its kernel
+  as the spatially flipped HWIO kernel of the equivalent input-dilated
+  (grouped) conv; ``models/convert.py`` carries it back.
+- :class:`AxisConv` is a bare flax ``nn.Conv`` with a k x 1 or 1 x k kernel
+  and padding on that axis only (LiteFlowNet's separable ``dist_v`` /
+  ``dist_h``); its keys have no ``Conv_0`` level.
 
 Layout: NCHW activations, torch's OIHW / IOHW weights.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..core.resize import resize_bilinear
 
 
 def leaky(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -34,10 +41,50 @@ class Conv(nn.Conv2d):
                          dilation=dilation, bias=bias)
 
 
+class AxisConv(nn.Conv2d):
+    """Conv2d with a (kh, kw) kernel and padding (kh // 2, kw // 2), a bare
+    flax ``nn.Conv``: its weights come from the flax key ``<path>``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: tuple[int, int]):
+        kh, kw = kernel
+        super().__init__(in_ch, out_ch, kernel, padding=(kh // 2, kw // 2))
+
+
 class Deconv(nn.ConvTranspose2d):
     """2x upsampling transposed conv, torch ``ConvTranspose2d(kernel=4,
-    stride=2, padding=1)``.  Its weights come from the flax key ``<path>``."""
+    stride=2, padding=1)``, grouped with ``groups``.  Its weights come from
+    the flax key ``<path>``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 4,
-                 bias: bool = True):
-        super().__init__(in_ch, out_ch, kernel, stride=2, padding=1, bias=bias)
+                 bias: bool = True, groups: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride=2, padding=1, bias=bias,
+                         groups=groups)
+
+
+def _pad_to(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _to_nchw(img, device: torch.device) -> torch.Tensor:
+    x = torch.as_tensor(np.ascontiguousarray(img) if isinstance(img, np.ndarray)
+                        else img)
+    return x.to(device, torch.float32).permute(0, 3, 1, 2)
+
+
+def estimate_resized(model: nn.Module, img1, img2, multiple: int) -> torch.Tensor:
+    """The reference's estimate contract, shared by the zoo: ``img1``,
+    ``img2`` [H, W, 3] or [B, H, W, 3] (numpy or tensor) are resized to
+    multiples of ``multiple``, run through ``model``, and its flow (at any
+    fraction of the input's size) is resized back to H x W with u and v
+    rescaled by W/Wp and H/Hp.  Returns the flow [(B,) H, W, 2] on the
+    model's device.  Callers run it under ``torch.inference_mode()``."""
+    device = next(model.parameters()).device
+    batched = np.ndim(img1) == 4
+    x1, x2 = (_to_nchw(i if batched else i[None], device) for i in (img1, img2))
+    H, W = x1.shape[-2:]
+    Hp, Wp = _pad_to(H, multiple), _pad_to(W, multiple)
+    flow = model(resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp)))
+    flow = resize_bilinear(flow, (H, W))
+    # Python scalars are rounded to fp32 first, as the reference's fp32 scale
+    flow = torch.stack([flow[:, 0] * (W / Wp), flow[:, 1] * (H / Hp)], -1)
+    return flow if batched else flow[0]

@@ -4,13 +4,15 @@ port's modules (reference ``models/common.py`` ``load_flat_npz`` and
 
 Names map one to one: the module at ``decoder2.dense0`` takes the flax
 parameters under ``decoder2/dense0``.  A :class:`~.common.Conv` wraps a
-flax ``nn.Conv`` (keys ``<path>/Conv_0/kernel`` HWIO -> OIHW); a
-:class:`~.common.Deconv` stores the flipped HWIO kernel of the equivalent
-input-dilated conv (``<path>/kernel``), the inverse of the reference's
-``convert_torch_deconv``: transpose to (Cin, Cout, kH, kW), then flip back.
+flax ``nn.Conv`` (keys ``<path>/Conv_0/kernel`` HWIO -> OIHW); an
+:class:`~.common.AxisConv` is a bare ``nn.Conv`` (keys ``<path>/kernel``);
+a :class:`~.common.Deconv` stores the flipped HWIO kernel of the equivalent
+input-dilated, possibly grouped, conv (``<path>/kernel``), the inverse of
+the reference's ``convert_torch_deconv``.
 """
 from __future__ import annotations
 
+import functools
 import pathlib
 
 import numpy as np
@@ -18,7 +20,9 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from .common import Conv, Deconv
+from .common import AxisConv, Conv, Deconv
+from .liteflownet import LiteFlowNet
+from .liteflownet3 import LiteFlowNet3
 from .pwcnet import PWCNet
 
 # The reference package keeps its packaged weights here; they are read as
@@ -38,10 +42,16 @@ def conv_weight(kernel: np.ndarray) -> np.ndarray:
     return np.transpose(kernel, (3, 2, 0, 1))
 
 
-def deconv_weight(kernel: np.ndarray) -> np.ndarray:
-    """The reference Deconv's flipped HWIO kernel -> torch ConvTranspose2d's
-    (Cin, Cout, kH, kW)."""
-    return np.transpose(kernel, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+def deconv_weight(kernel: np.ndarray, groups: int = 1) -> np.ndarray:
+    """The reference Deconv's flipped HWIO kernel [kH, kW, Cin/g, Cout] of
+    ``groups`` = g groups -> torch ConvTranspose2d's (Cin, Cout/g, kH, kW):
+    the grouped branch of the reference's ``convert_torch_deconv`` run
+    backwards (its output channel g * Cout/g + o is group g's o-th)."""
+    kh, kw, cpg, cout = kernel.shape
+    k = kernel.reshape(kh, kw, cpg, groups, cout // groups)
+    k = np.transpose(k, (3, 2, 4, 0, 1)).reshape(groups * cpg, cout // groups,
+                                                 kh, kw)
+    return k[:, :, ::-1, ::-1]
 
 
 def _flax_prefix(name: str, module: nn.Module) -> tuple[list[str], object] | None:
@@ -50,7 +60,9 @@ def _flax_prefix(name: str, module: nn.Module) -> tuple[list[str], object] | Non
     own."""
     path = name.split(".") if name else []
     if isinstance(module, Deconv):
-        return path, deconv_weight
+        return path, functools.partial(deconv_weight, groups=module.groups)
+    if isinstance(module, AxisConv):
+        return path, conv_weight
     if isinstance(module, Conv):
         return path + ["Conv_0"], conv_weight
     return None
@@ -92,13 +104,28 @@ def flax_to_torch_state_dict(flat: dict[str, np.ndarray],
     return out
 
 
+def _load_synth(name: str, model: nn.Module, device) -> nn.Module | None:
+    path = WEIGHTS_DIR / name
+    if not path.exists():
+        return None
+    model.load_state_dict(flax_to_torch_state_dict(load_flat_npz(path), model))
+    return model.to(resolve_device(device)).eval()
+
+
 def load_pwcnet_synth(device=None) -> PWCNet | None:
     """The port's :class:`PWCNet` with the packaged ``pwcnet_synth.npz``
     weights, in eval mode on ``device`` (the card unless ``"cpu"`` is asked
     for), or None when the file is absent."""
-    path = WEIGHTS_DIR / "pwcnet_synth.npz"
-    if not path.exists():
-        return None
-    model = PWCNet()
-    model.load_state_dict(flax_to_torch_state_dict(load_flat_npz(path), model))
-    return model.to(resolve_device(device)).eval()
+    return _load_synth("pwcnet_synth.npz", PWCNet(), device)
+
+
+def load_liteflownet_synth(device=None) -> LiteFlowNet | None:
+    """:class:`LiteFlowNet` with the packaged ``liteflownet_synth.npz``, as
+    :func:`load_pwcnet_synth`."""
+    return _load_synth("liteflownet_synth.npz", LiteFlowNet(), device)
+
+
+def load_liteflownet3_synth(device=None) -> LiteFlowNet3 | None:
+    """:class:`LiteFlowNet3` with the packaged ``liteflownet3_synth.npz``,
+    as :func:`load_pwcnet_synth`."""
+    return _load_synth("liteflownet3_synth.npz", LiteFlowNet3(), device)

@@ -11,14 +11,12 @@ which ``models/convert.py`` relies on.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
-from ..core.resize import resize_bilinear
 from ..core.warp import warp_with_mask
 from ..ops.correlation import local_correlation
-from .common import Conv, Deconv, leaky
+from .common import Conv, Deconv, estimate_resized, leaky
 
 _EXTRACTOR_CH = (16, 32, 64, 96, 128, 196)
 _DENSE_CH = (128, 128, 96, 64, 32)
@@ -132,16 +130,6 @@ class PWCNet(nn.Module):
         return (flow + self.refiner(feat)) * 20.0
 
 
-def _pad_to(x: int, mult: int) -> int:
-    return ((x + mult - 1) // mult) * mult
-
-
-def _to_nchw(img, device: torch.device) -> torch.Tensor:
-    x = torch.as_tensor(np.ascontiguousarray(img) if isinstance(img, np.ndarray)
-                        else img)
-    return x.to(device, torch.float32).permute(0, 3, 1, 2)
-
-
 @torch.inference_mode()
 def estimate(model: PWCNet, img1, img2) -> torch.Tensor:
     """The reference's estimate contract: ``img1``, ``img2`` [H, W, 3] or
@@ -149,13 +137,4 @@ def estimate(model: PWCNet, img1, img2) -> torch.Tensor:
     run through the net, and the quarter-resolution flow is resized back to
     H x W with u and v rescaled by W/Wp and H/Hp.  Returns the flow
     [(B,) H, W, 2] on the model's device."""
-    device = next(model.parameters()).device
-    batched = np.ndim(img1) == 4
-    x1, x2 = (_to_nchw(i if batched else i[None], device) for i in (img1, img2))
-    H, W = x1.shape[-2:]
-    Hp, Wp = _pad_to(H, 64), _pad_to(W, 64)
-    flow = model(resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp)))
-    flow = resize_bilinear(flow, (H, W))
-    # Python scalars are rounded to fp32 first, as the reference's fp32 scale
-    flow = torch.stack([flow[:, 0] * (W / Wp), flow[:, 1] * (H / Hp)], -1)
-    return flow if batched else flow[0]
+    return estimate_resized(model, img1, img2, 64)

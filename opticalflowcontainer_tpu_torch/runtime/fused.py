@@ -1,13 +1,14 @@
-"""Streaming step on the device: uint8 BGR frame -> gray -> Farneback flow
-against the previous frame's carried expansion -> aggregated horizontal
-displacement (port of the reference's ``runtime/fused.py``).
+"""Streaming steps on the device (port of the reference's
+``runtime/fused.py``): uint8 BGR frame in, aggregated horizontal pixel
+displacement out.
 
 Per frame the host sends one uint8 frame and receives one fp32 scalar; the
-flow field never leaves the device.  :class:`FusedFarnebackStream` owns the
-device-resident state (the previous frame's per-level expansion planes,
-:func:`classical.farneback.farneback_stream_planes`), so every frame is
-expanded once.  ``step()`` returns the displacement as an unsynced 0-dim
-device tensor; ``float(du)`` syncs.
+flow field never leaves the device.  :class:`FusedFarnebackStream` carries
+the previous frame's per-level expansion planes
+(:func:`classical.farneback.farneback_stream_planes`), so every frame is
+expanded once; :class:`FusedModelStream` carries the previous normalized
+frame into a learned model's ``estimate``.  ``step()`` returns the
+displacement as an unsynced 0-dim device tensor; ``float(du)`` syncs.
 """
 from __future__ import annotations
 
@@ -48,6 +49,19 @@ def _aggregate_u(u: torch.Tensor, mask: torch.Tensor | None,
     return torch.nan_to_num(torch.where(mask.any(), masked, full))
 
 
+def _upload(frames, mask, device: torch.device):
+    """Frames (numpy or tensor, uploaded as they are: uint8 stays uint8)
+    and the optional boolean mask on ``device``."""
+    x = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(frames))
+    m = None
+    if mask is not None:
+        m = (mask if isinstance(mask, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)))
+        m = m.to(device, torch.bool)
+    return x.to(device), m
+
+
 class FusedFarnebackStream:
     """Stateful streaming step.  ``step(frame)`` returns the aggregated
     pixel displacement du (0-dim device tensor, unsynced) or None on the
@@ -76,16 +90,6 @@ class FusedFarnebackStream:
         self.step(frame, mask)
         self._state = s0
 
-    def _upload(self, frames, mask):
-        x = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(frames))
-        m = None
-        if mask is not None:
-            m = (mask if isinstance(mask, torch.Tensor)
-                 else torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)))
-            m = m.to(self.device, torch.bool)
-        return x.to(self.device), m
-
     def _gray(self, frame: torch.Tensor) -> torch.Tensor:
         f = frame.float()
         return bgr_to_gray(f) if f.dim() == 3 else f
@@ -98,7 +102,7 @@ class FusedFarnebackStream:
 
     def step(self, frame: np.ndarray, mask: np.ndarray | None = None):
         """du (0-dim device fp32 tensor, pixels), or None on the first frame."""
-        x, m = self._upload(frame, mask)
+        x, m = _upload(frame, mask, self.device)
         if self._state is None:
             self._state = farneback_stream_planes(
                 self._gray(x), device=self.device, **self.fb_kwargs)
@@ -111,7 +115,7 @@ class FusedFarnebackStream:
         if self._state is None:
             raise RuntimeError("seed the stream with step(first_frame) "
                                "before step_many")
-        x, m = self._upload(frames, mask)
+        x, m = _upload(frames, mask, self.device)
         return torch.stack([self._advance(f, m) for f in x])
 
 
@@ -127,6 +131,98 @@ def make_fused_farneback_backend(aggregate: str = "mean", *, device=None,
 
     def backend(prev, cur, dt, mask=None):
         if stream._state is None:
+            stream.step(prev, mask)
+        return float(stream.step(cur, mask))
+
+    backend.wants_color = True
+    backend.returns_displacement = True
+    backend.stream = stream
+    return backend
+
+
+class FusedModelStream:
+    """Learned-model streaming step: uint8 BGR frame in, aggregated pixel
+    displacement out (the reference's ``FusedModelStream``).  The frame goes
+    up once, is normalized to [0, 1] on the device (BGR kept, the models'
+    convention; ``bgr_to_rgb=True`` flips it for RGB-trained nets), and the
+    previous normalized frame stays on the device as the state.
+
+    ``estimate_fn(model, img1, img2) -> flow [H, W, 2]`` is any of the zoo's
+    ``estimate`` functions (the weights live in the module).  ``model`` must
+    sit on ``device`` (the card unless ``"cpu"`` is asked for).
+    ``bf16=True`` (bfloat16 serving) is not ported yet and raises."""
+
+    def __init__(self, model, estimate_fn: Callable, aggregate: str = "mean",
+                 bgr_to_rgb: bool = False, bf16: bool = False, *, device=None):
+        if aggregate not in ("mean", "median"):
+            raise ValueError(f"aggregate must be 'mean' or 'median', got {aggregate!r}")
+        if bf16:
+            raise NotImplementedError(
+                "bf16 serving is not ported yet (ROADMAP module item 6); "
+                "the stream serves fp32 only")
+        self.device = resolve_device(device)
+        where = {p.device for p in model.parameters()}
+        if where != {self.device}:
+            raise ValueError(f"the model's parameters are on {sorted(map(str, where))}, "
+                             f"the stream runs on {self.device}")
+        self.model = model
+        self.estimate_fn = estimate_fn
+        self.aggregate = aggregate
+        self.bgr_to_rgb = bgr_to_rgb
+        self._prev: torch.Tensor | None = None  # previous normalized frame
+
+    def reset(self) -> None:
+        self._prev = None
+
+    def warmup(self, frame: np.ndarray, mask: np.ndarray | None = None) -> None:
+        """Run the first-frame and steady-state steps once and restore the
+        state."""
+        s0 = self._prev
+        self.step(frame, mask)
+        self.step(frame, mask)
+        self._prev = s0
+
+    def _normalize(self, frame: torch.Tensor) -> torch.Tensor:
+        # times the fp32 reciprocal, as the reference rounds it
+        f = frame.float() * (1.0 / 255.0)
+        return f.flip(-1) if self.bgr_to_rgb else f
+
+    def _advance(self, frame: torch.Tensor, mask: torch.Tensor | None):
+        f = self._normalize(frame)
+        flow = self.estimate_fn(self.model, self._prev, f)
+        self._prev = f
+        return _aggregate_u(flow[..., 0], mask, self.aggregate)
+
+    def step(self, frame: np.ndarray, mask: np.ndarray | None = None):
+        """du (0-dim device fp32 tensor, pixels), or None on the first frame."""
+        x, m = _upload(frame, mask, self.device)
+        if self._prev is None:
+            self._prev = self._normalize(x)
+            return None
+        return self._advance(x, m)
+
+    def step_many(self, frames: np.ndarray, mask: np.ndarray | None = None):
+        """``frames`` [K, H, W, 3] -> [K] displacements: one upload, then
+        the per-frame step on each (the same numbers as K ``step`` calls)."""
+        if self._prev is None:
+            raise RuntimeError("seed the stream with step(first_frame) "
+                               "before step_many")
+        x, m = _upload(frames, mask, self.device)
+        return torch.stack([self._advance(f, m) for f in x])
+
+
+def make_fused_model_backend(model, estimate_fn: Callable,
+                             aggregate: str = "mean", bgr_to_rgb: bool = False,
+                             bf16: bool = False, *, device=None) -> Callable:
+    """Flow-node backend wrapping :class:`FusedModelStream`: the previous
+    normalized frame lives on the device, so ``prev`` only seeds the first
+    call; returns the aggregated pixel displacement
+    (``returns_displacement``)."""
+    stream = FusedModelStream(model, estimate_fn, aggregate, bgr_to_rgb, bf16,
+                              device=device)
+
+    def backend(prev, cur, dt, mask=None):
+        if stream._prev is None:
             stream.step(prev, mask)
         return float(stream.step(cur, mask))
 

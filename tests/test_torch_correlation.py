@@ -107,10 +107,15 @@ def _blocks(cfg, B, H, W, max_disp, ds, os_):
 
 
 def _shapes():
-    """(name, max_disp, ds, os, B, C, H, W): the B=1 PWC-Net levels, and
-    chip_smoke's B=1 and B=8 shapes of every configuration at 640x480."""
+    """(name, max_disp, ds, os, B, C, H, W): the B=1 PWC-Net levels,
+    LiteFlowNet's and LFN3's B=1 correlations, and chip_smoke's B=1 and B=8
+    shapes of every configuration at 640x480."""
     import chip_smoke
     out = [(f"pwc_level{6 - i}", 4, 1, 1, *s) for i, s in enumerate(PWC_LEVELS_B1)]
+    # LiteFlowNet's five and LFN3's six B=1 correlations
+    out += [(what.replace(" ", "_"), *cfg, *shape)
+            for what, cfg, shape in chip_smoke.CORR_B1
+            if not what.startswith("PWC-Net")]
     for name, (md, ds, os_, C, H, W) in chip_smoke.CORR_AT_640x480.items():
         out += [(name, md, ds, os_, B, C, H, W) for B in (1, 8)]
     return out

@@ -366,3 +366,94 @@ def test_pwcnet_on_card_matches_cpu(cuda):
     on_cpu = pwcnet.estimate(model.cpu(), a, b).numpy()
     d = np.abs(on_card - on_cpu)
     assert d.mean() <= 1e-3 and d.max() <= 5e-2, (d.mean(), d.max())
+
+
+def _lfn_b1_correlations():
+    import chip_smoke
+
+    return [c for c in chip_smoke.CORR_B1 if not c[0].startswith("PWC-Net")]
+
+
+@pytest.mark.parametrize("case", _lfn_b1_correlations(), ids=lambda c: c[0])
+def test_correlation_kernel_at_lfn_b1_correlations(case, cuda):
+    """K4 at LiteFlowNet's five and LFN3's six B=1 correlations (a
+    self-correlation passes one tensor as f1 and f2): against the plain
+    version at 1e-6 of max|f1| max|f2|, and a second launch bit for bit."""
+    what, config, shape = case
+    rng = np.random.default_rng(14)
+    f1 = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+    f2 = f1 if "self" in what else torch.from_numpy(
+        rng.standard_normal(shape, np.float32)).to(cuda)
+    got = k4.local_correlation(f1, f2, *config)
+    want = k4.correlation_plain(f1, f2, *config)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-6 * f1.abs().max() * f2.abs().max()
+    assert torch.equal(k4.local_correlation(f1, f2, *config), got)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 60, 80), (1, 2, 120, 160),
+                                   (1, 3, 240, 320), (1, 64, 240, 320)])
+def test_warp_kernel_at_lfn_shapes(shape, cuda):
+    """K3 at LFN3's flow deformation (C=2), LiteFlowNet's level-2 image and
+    feature warps (C=3, 64), B=1, zeros padding: bit-equal to the plain
+    version (the tap sum rounded in its order)."""
+    rng = np.random.default_rng(15)
+    B, C, H, W = shape
+    src = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+    u, v = (torch.from_numpy(rng.uniform(-9, 9, (B, H, W)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    got = k3.warp_bilinear(src, u, v)
+    want = k3.warp_bilinear_plain(src, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("three", [True, False], ids=["lfn3", "lfn"])
+def test_liteflownet_on_card_matches_cpu(three, cuda):
+    """estimate at 64 x 96 with chip_smoke's seeded weights: the card (K3,
+    K4, cuDNN with TF32 off) against the CPU (plain versions), with 13 K3
+    and 6 K4 launches per LFN3 call, 14 and 5 per LiteFlowNet call.  Bounds
+    as for PWC-Net: mean 1e-3 px, max 5e-2 px."""
+    import chip_smoke
+    from opticalflowcontainer_tpu_torch.models import liteflownet, liteflownet3
+
+    mod = liteflownet3 if three else liteflownet
+    cls = mod.LiteFlowNet3 if three else mod.LiteFlowNet
+    expect = chip_smoke.LFN3_LAUNCHES if three else chip_smoke.LFN_LAUNCHES
+    model = chip_smoke.seeded_liteflownet(torch, cls, 0, "cpu")
+    rng = np.random.default_rng(16)
+    a = rng.uniform(0, 1, (64, 96, 3)).astype(np.float32)
+    b = np.roll(a, 3, 1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        k3.warp_bilinear.launches = k4.local_correlation.launches = 0
+        on_card = mod.estimate(model.to(cuda), a, b).cpu().numpy()
+        assert {"warp_bilinear": k3.warp_bilinear.launches,
+                "local_correlation": k4.local_correlation.launches} == expect
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    on_cpu = mod.estimate(model.cpu(), a, b).numpy()
+    d = np.abs(on_card - on_cpu)
+    assert d.mean() <= 1e-3 and d.max() <= 5e-2, (d.mean(), d.max())
+
+
+def test_model_stream_step_many_equals_step_on_card(cuda):
+    """FusedModelStream over a seeded LFN3 on the card: five frames from
+    one upload equal five steps bit for bit."""
+    import chip_smoke
+    from opticalflowcontainer_tpu_torch.models import liteflownet3
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
+
+    model = chip_smoke.seeded_liteflownet(torch, liteflownet3.LiteFlowNet3, 0, cuda)
+    rng = np.random.default_rng(17)
+    base = rng.uniform(0, 255, (64, 120, 3)).astype(np.uint8)
+    frames = np.stack([base[:, 2 * i:2 * i + 96] for i in range(6)])
+    a = FusedModelStream(model, liteflownet3.estimate, device=cuda)
+    b = FusedModelStream(model, liteflownet3.estimate, device=cuda)
+    a.step(frames[0])
+    b.step(frames[0])
+    per_frame = torch.stack([a.step(f) for f in frames[1:]])
+    assert torch.equal(b.step_many(frames[1:]), per_frame)
+    assert per_frame.device.type == "cuda" and bool(torch.isfinite(per_frame).all())
