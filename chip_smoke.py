@@ -239,60 +239,74 @@ def build_phase() -> None:
     _build.load_kernels()
 
 
-def k1_phase(torch, dev, B=6, H=720, W=1280, seed=0) -> dict:
+# [B, H, W] K1 is checked and timed at: the clip's finest level (720p, B=6)
+# and the 2x1080p batcher's finest level (B=2)
+K1_SHAPES = ((6, 720, 1280), (2, 1080, 1920))
+
+
+def k1_phase(torch, dev, seed=0) -> dict:
     from opticalflowcontainer_tpu_torch.ops.farneback_update import (
         farneback_update, farneback_update_plain)
 
     rng = np.random.default_rng(seed)
-    R0 = torch.from_numpy(rng.standard_normal((B, 5, H, W), np.float32)).to(dev)
-    R1 = torch.from_numpy(rng.standard_normal((B, 5, H, W), np.float32)).to(dev)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    # up to ~7 px of smooth flow plus noise: taps leave the level near its
-    # borders, so both branches of the update run
-    u = np.stack([6 * np.sin(2 * np.pi * (xx / W + b / B)) for b in range(B)])
-    v = np.stack([4 * np.cos(2 * np.pi * (yy / H + b / B)) for b in range(B)])
-    u = torch.from_numpy((u + rng.uniform(-1, 1, u.shape)).astype(np.float32)).to(dev)
-    v = torch.from_numpy((v + rng.uniform(-1, 1, v.shape)).astype(np.float32)).to(dev)
-    got = farneback_update(R0, R1, u, v)
-    want = farneback_update_plain(R0, R1, u, v)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    fx = torch.arange(W, device=dev) + u
-    fy = torch.arange(H, device=dev)[:, None] + v
-    inb = ((fx.floor() >= 0) & (fx.floor() < W - 1)
-           & (fy.floor() >= 0) & (fy.floor() < H - 1))
-    n_inb = int(inb.sum())
-    n_pix = B * H * W
-    # R0 (5), u, v (2) and M (5) per pixel; R1's 5 planes where in bounds
-    n_bytes = 4 * (12 * n_pix + 5 * n_inb)
-    n_flops = 80 * n_inb + 45 * (n_pix - n_inb)
     tol = 1e-5
-    print(f"K1 [B={B}, 5, {H}, {W}]: out-of-bounds share "
-          f"{1 - n_inb / n_pix:.4f}; max|d| {err:.3e}, max|d|/max|plain| "
-          f"{err / scale:.3e} (tolerance {tol:.0e}: fp32, FMA contraction "
-          f"and operation order differ)")
-    require(err <= tol * scale, "K1 agrees with its plain version")
-    ms = cuda_ms(lambda: farneback_update(R0, R1, u, v), reps=20)
-    g_ms = graph_ms(lambda: farneback_update(R0, R1, u, v))
-    plain_ms = cuda_ms(lambda: farneback_update_plain(R0, R1, u, v), reps=5)
-    b_ms, by = bound_ms(n_bytes, n_flops)
-    print(f"K1 {ms:.4f} ms per launch, events (graph replay {g_ms:.4f} ms; "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by}: "
-          f"{n_bytes / 1e6:.1f} MB)")
+    shapes = []
+    for B, H, W in K1_SHAPES:
+        R0 = torch.from_numpy(rng.standard_normal((B, 5, H, W), np.float32)).to(dev)
+        R1 = torch.from_numpy(rng.standard_normal((B, 5, H, W), np.float32)).to(dev)
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        # up to ~7 px of smooth flow plus noise: taps leave the level near
+        # its borders, so both branches of the update run
+        u = np.stack([6 * np.sin(2 * np.pi * (xx / W + b / B)) for b in range(B)])
+        v = np.stack([4 * np.cos(2 * np.pi * (yy / H + b / B)) for b in range(B)])
+        u = torch.from_numpy((u + rng.uniform(-1, 1, u.shape)).astype(np.float32)).to(dev)
+        v = torch.from_numpy((v + rng.uniform(-1, 1, v.shape)).astype(np.float32)).to(dev)
+        got = farneback_update(R0, R1, u, v)
+        want = farneback_update_plain(R0, R1, u, v)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        fx = torch.arange(W, device=dev) + u
+        fy = torch.arange(H, device=dev)[:, None] + v
+        inb = ((fx.floor() >= 0) & (fx.floor() < W - 1)
+               & (fy.floor() >= 0) & (fy.floor() < H - 1))
+        n_inb = int(inb.sum())
+        n_pix = B * H * W
+        # R0 (5), u, v (2) and M (5) per pixel; R1's 5 planes where in bounds
+        n_bytes = 4 * (12 * n_pix + 5 * n_inb)
+        n_flops = 80 * n_inb + 45 * (n_pix - n_inb)
+        print(f"K1 [B={B}, 5, {H}, {W}]: out-of-bounds share "
+              f"{1 - n_inb / n_pix:.4f}; max|d| {err:.3e}, max|d|/max|plain| "
+              f"{err / scale:.3e} (tolerance {tol:.0e}: fp32, FMA contraction "
+              f"and operation order differ)")
+        require(err <= tol * scale, f"K1 [{B}, 5, {H}, {W}] agrees with its plain version")
+        ms = cuda_ms(lambda: farneback_update(R0, R1, u, v), reps=20)
+        g_ms = graph_ms(lambda: farneback_update(R0, R1, u, v))
+        plain_ms = cuda_ms(lambda: farneback_update_plain(R0, R1, u, v), reps=5)
+        b_ms, by = bound_ms(n_bytes, n_flops)
+        print(f"K1 [B={B}, 5, {H}, {W}] {ms:.4f} ms per launch, events (graph "
+              f"replay {g_ms:.4f} ms; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"by {by}: {n_bytes / 1e6:.1f} MB; {b_ms / g_ms:.1%} of it by graph)")
+        shapes.append({"shape": [B, 5, H, W], "max_abs_err": err, "ms": ms,
+                       "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": by})
+        del R0, R1, u, v, got, want
+    head = shapes[0]
     return {"name": "farneback_update", "route": "cuda",
             "source": "opticalflowcontainer_tpu_torch/ops/csrc/farneback_update.cu",
             "replaces": "opticalflowcontainer_tpu/ops/blockwarp.py:612",
-            "max_abs_err": err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+            "max_abs_err": max(x["max_abs_err"] for x in shapes), "ms": head["ms"],
+            "graph_ms": head["graph_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shapes": shapes}
 
 
-# (B, H, W, winsize) K2 is timed at: the clip's finest level (720p, B=6) and
+# (B, H, W, winsize) K2 is timed at: the clip's finest level (720p, B=6),
 # the 640x480 stream's four levels (B=1), at cv2's default winsize 15 and the
-# runtime's default 13
+# runtime's default 13, and the 2x1080p batcher's finest level (B=2)
 K2_SHAPES = ((6, 720, 1280, 15), (6, 720, 1280, 13), (1, 480, 640, 15),
              (1, 480, 640, 13), (1, 240, 320, 15), (1, 120, 160, 15),
-             (1, 60, 80, 15))
+             (1, 60, 80, 15), (2, 1080, 1920, 15))
 
 
 def normal_eq(torch, rng, B, H, W, dev) -> "torch.Tensor":
@@ -1338,6 +1352,347 @@ def model_stream_phase(torch, dev, trace_dir, H=480, W=640, n=201, dx=1.5,
     return launches
 
 
+def kernel_counts() -> dict:
+    """The four wrappers' launch counts (read after a path's run)."""
+    from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
+    from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
+    from opticalflowcontainer_tpu_torch.ops.solve2x2 import blur_solve
+    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    return {f.__name__: f.launches for f in (farneback_update, blur_solve,
+                                             warp_bilinear, local_correlation)}
+
+
+def reset_counts() -> None:
+    from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
+    from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
+    from opticalflowcontainer_tpu_torch.ops.solve2x2 import blur_solve
+    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
+
+    for f in (farneback_update, blur_solve, warp_bilinear, local_correlation):
+        f.launches = 0
+
+
+def node_phase(torch, dev, H=480, W=640, n=90, fps=30.0) -> dict:
+    """The node graph at 640x480: the demo (synthetic camera -> FlowNode in
+    stream mode -> velocity topics), plain and fused, each required to
+    return 0 with every frame processed or dropped and none failed, and
+    its kernel launches equal to the frames it processed; then
+    bringup_flow in topic mode, where depth and camera_info set the scale
+    the velocities follow."""
+    import io
+
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.runtime import demo, launch
+    from opticalflowcontainer_tpu_torch.runtime.messages import (
+        CameraInfoMsg, Header, ImageMsg)
+    from opticalflowcontainer_tpu_torch.runtime.sources import SyntheticCamera
+
+    per_frame = (fb._num_levels(H, W, 2, 0.5) + 1) * 2  # levels 2, 2 iterations
+    by_path = {}
+    for fused in (False, True):
+        label = "node_fused_farneback" if fused else "node_farneback"
+        argv = ["--frames", str(n), "--width", str(W), "--height", str(H),
+                "--fps", str(fps)] + (["--fused"] if fused else [])
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):  # one line a frame: keep the tail
+            r = demo.run(argv)
+        counts = kernel_counts()
+        for line in out.getvalue().strip().splitlines()[-2:]:
+            print(f"demo {' '.join(argv)}: {line}")
+        print(f"  {label}: processed {r['frames_processed']}, dropped "
+              f"{r['frames_dropped']}, failed {r['frames_failed']} of {n} frames, "
+              f"{r['published']} smoothed velocities, "
+              f"{r['frames_processed'] / r['seconds']:.2f} fps achieved in "
+              f"{r['seconds']:.3f} s, final smoothed velocity "
+              f"{r['final_vx']} m/s, error {r['error_mps']} m/s; launches {counts}")
+        require(r["exit_code"] == 0, f"the demo ({label}) returns 0")
+        require(r["ended"] and r["frames_failed"] == 0, "no frame failed, threads ended")
+        require(r["published"] == r["frames_processed"] > 0
+                and r["frames_processed"] + r["frames_dropped"] == n - 1,
+                "one velocity per processed frame; every frame processed or dropped")
+        # one warm-up flow, then one flow per processed frame
+        want = per_frame * (r["frames_processed"] + 1)
+        require(counts["farneback_update"] == counts["blur_solve"] == want,
+                f"K1 and K2 launched {want} times ({per_frame} a flow)")
+        by_path[label] = counts
+
+    # where a frame's time goes: ten frames through each demo backend
+    from opticalflowcontainer_tpu_torch.runtime.fused import make_fused_farneback_backend
+    from opticalflowcontainer_tpu_torch.runtime.nodes import (
+        _bgr_to_gray_np, make_farneback_backend)
+
+    cam = SyntheticCamera(width=W, height=H, fps=fps, n_frames=12)
+    bgr = [cam.frame_at(i) for i in range(12)]
+    gray = [_bgr_to_gray_np(f) for f in bgr]
+    plain = make_farneback_backend(device=dev, levels=2, winsize=13, iterations=2)
+    fused_b = make_fused_farneback_backend(device=dev, levels=2, winsize=13, iterations=2)
+    plain(gray[0], gray[1], 1 / fps)
+    fused_b(bgr[0], bgr[1], 1 / fps)
+    profile_path(torch, "ten demo frames, Farneback backend (flow to numpy)",
+                 lambda: [plain(a, b, 1 / fps) for a, b in zip(gray[1:], gray[2:])],
+                 None, "node_plain")
+    profile_path(torch, "ten demo frames, fused Farneback backend (du to the host)",
+                 lambda: [fused_b(a, b, 1 / fps) for a, b in zip(bgr[1:], bgr[2:])],
+                 None, "node_fused")
+
+    # topic mode: depth and fx set pixel_to_meter, the velocity follows
+    bus, node, depth = launch.bringup_flow(device=dev)
+    cam = SyntheticCamera(width=W, height=H, fps=fps, n_frames=6, velocity_mps=0.05,
+                          pixel_to_meter=0.000857)
+    vels, mean_u = [], []
+    bus.subscribe("/optical_flow/FLOW_velocity", lambda m: vels.append(m.x))
+    bus.subscribe("/optical_flow/FLOW_flow",
+                  lambda m: mean_u.append(float(m.flow[..., 0].mean())))
+    node.backend(cam.frame_at(0)[..., 0].astype(np.float32),
+                 cam.frame_at(1)[..., 0].astype(np.float32), 1 / fps)  # warm-up
+    reset_counts()
+    try:
+        bus.publish("/camera/color/camera_info", CameraInfoMsg(Header(0.0), fx=600.0))
+        for i, mm in enumerate((1500, 1500, 3000, 3000, 3000)):
+            bus.publish("/camera/aligned_depth_to_color/image_raw",
+                        ImageMsg(Header(i / fps), np.full((H, W), mm, np.uint16),
+                                 "16UC1"))
+            require(abs(node.vel.pixel_to_meter - mm * 1e-3 / 600.0) < 1e-12,
+                    "pixel_to_meter = median depth / fx")
+            bus.publish("/camera/color/image_raw",
+                        ImageMsg(Header(i / fps), cam.frame_at(i)))
+    finally:
+        node.stop()
+    counts = kernel_counts()
+    want = [cam.px_per_frame * fps * mm * 1e-3 / 600.0 for mm in (1500, 3000, 3000, 3000)]
+    print(f"bringup_flow topic mode at {W}x{H}: velocities {[round(v, 5) for v in vels]} "
+          f"m/s for depth 1.5 m then 3 m at fx 600 (expected "
+          f"{[round(v, 5) for v in want]}); frames failed {node.frames_failed}; "
+          f"launches {counts}")
+    require(len(vels) == len(mean_u) == 4 and node.frames_failed == 0,
+            "one velocity a frame after the first")
+    # exactly the published flow's mean u over dt at depth / fx, and near
+    # the camera's ground truth
+    scale = [mm * 1e-3 / 600.0 for mm in (1500, 3000, 3000, 3000)]
+    require(all(abs(v - u * fps * p) <= 1e-6 * abs(v)
+                for v, u, p in zip(vels, mean_u, scale)),
+            "the velocity is the flow's mean u at the depth-driven scale")
+    require(all(abs(v - w) < 0.1 * w for v, w in zip(vels, want)),
+            "the velocity is near the camera's ground truth")
+    require(counts["farneback_update"] == counts["blur_solve"] == 4 * per_frame,
+            "K1 and K2 ran on every frame")
+    by_path["bringup_flow_topic"] = counts
+    return by_path
+
+
+def batcher_phase(torch, dev, trace_dir, H=1080, W=1920, fps=60.0, seconds=6.0,
+                  dx=1.5, n_cycle=32) -> dict:
+    """MultiStreamFlow over the stateful batched fused Farneback backend
+    (bench.py's levels 3, winsize 15, 3 iterations) on two 1080p streams:
+    first the backend's du against one FusedFarnebackStream per stream on a
+    deterministic sequence with a late join and a dropped-pair reseed;
+    then both streams pushed at 60 fps for ``seconds`` with
+    pipeline_depth=1: fields/s, batches, dropped pairs, velocities per
+    stream, and the device time of a batch."""
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.runtime.bus import Bus
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedFarnebackStream
+    from opticalflowcontainer_tpu_torch.runtime.multistream import (
+        MultiStreamFlow, make_stateful_batched_fused_farneback)
+
+    kw = dict(levels=3, winsize=15, iterations=3)
+    per_batch = (fb._num_levels(H, W, 3, 0.5) + 1) * 3
+    # gray frames as a decoder's luma plane hands them on: stream s moves
+    # (s + 1) * dx px a frame, n_cycle frames pushed in a cycle
+    frames = [plane_waves(torch, H, W, [((s + 1) * dx * t, 0.0) for t in range(n_cycle)],
+                          seed=20 + s, device=dev).cpu().numpy() for s in range(2)]
+    backend = make_stateful_batched_fused_farneback(2, device=dev, **kw)
+    refs = [FusedFarnebackStream(device=dev, **kw) for _ in range(2)]
+    worst = 0.0
+    for idxs, t, dropped in (([0], 1, None), ([0, 1], 2, None), ([0], 3, None),
+                             ([0, 1], 4, [False, True]), ([0, 1], 5, None)):
+        prev = np.stack([frames[i][t - 1] for i in idxs])
+        cur = np.stack([frames[i][t] for i in idxs])
+        got = backend(prev, cur, idxs, dropped).cpu()
+        want = []
+        for k, i in enumerate(idxs):
+            if refs[i]._state is None or (dropped and dropped[k]):
+                refs[i].reset()
+                refs[i].step(frames[i][t - 1])
+            want.append(float(refs[i].step(frames[i][t])))
+        d = float((got - torch.tensor(want)).abs().max())
+        worst = max(worst, d)
+        require(all(abs(g - (i + 1) * dx) < 0.1 for g, i in zip(got.tolist(), idxs)),
+                f"batch du {got.tolist()} near the shifts")
+    tol = 1e-4
+    print(f"2x{W}x{H} stateful batcher vs one FusedFarnebackStream per stream "
+          f"(late join, partial batches, a dropped-pair reseed): max|du d| "
+          f"{worst:.3e} px (tolerance {tol:.0e} px)")
+    require(worst <= tol, "the batcher's du matches per-stream streams")
+
+    bus = Bus(namespace="")
+    backend = make_stateful_batched_fused_farneback(2, device=dev, **kw)
+    pair = np.stack([frames[0][0], frames[1][0]]), np.stack([frames[0][1], frames[1][1]])
+    backend(*pair, [0, 1])  # warm-up: the allocator, the state
+    reseeded = []
+
+    def counting(prev, cur, idxs, dropped=None):
+        reseeded.append(sum(dropped or ()))
+        return backend(prev, cur, idxs, dropped)
+
+    counting.stateful = counting.returns_displacement = True
+    ms = MultiStreamFlow(bus, counting, n_streams=2, pixel_to_meter=1.0,
+                         pipeline_depth=1)
+    got = {0: [], 1: []}
+    for i in range(2):
+        bus.subscribe(f"/optical_flow/STREAM{i}_velocity",
+                      lambda m, i=i: got[i].append(m.x))
+    n_push = int(seconds * fps)
+    push_ms = []
+    reset_counts()
+    ms.start()
+    t0 = time.perf_counter()
+    try:
+        for k in range(n_push):
+            delay = t0 + k / fps - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            t_push = time.perf_counter()
+            for s in range(2):
+                ms.push_frame(s, frames[s][k % n_cycle], stamp=time.monotonic())
+            push_ms.append((time.perf_counter() - t_push) * 1e3)
+    finally:
+        ended = ms.stop(timeout=30.0)
+    elapsed = time.perf_counter() - t0
+    counts = kernel_counts()
+    print(f"2x{W}x{H} at {fps:g} fps for {elapsed:.3f} s: {ms.fields} fields in "
+          f"{ms.batches} batches ({ms.fields / elapsed:.2f} fields/s of "
+          f"{2 * fps:g} pushed, {ms.fields / max(ms.batches, 1):.3f} fields a batch), "
+          f"{ms.pairs_dropped} pairs dropped of {2 * (n_push - 1)}, {sum(reseeded)} "
+          f"rows reseeded after a drop; velocities per "
+          f"stream {len(got[0])}, {len(got[1])}; pushing two frames took p50 "
+          f"{np.percentile(push_ms, 50):.3f} ms; launches {counts}")
+    require(ended, "the batcher thread ended")
+    require(all(len(v) >= seconds for v in got.values()),
+            "at least one velocity per stream per second")
+    require(ms.fields == len(got[0]) + len(got[1]), "every field published")
+    require(counts["farneback_update"] == counts["blur_solve"] == per_batch * ms.batches,
+            f"K1 and K2 launched {per_batch} times a batch")
+
+    ms_batch = cuda_ms(lambda: backend(*pair, [0, 1]), reps=10)
+    ms_reseed = cuda_ms(lambda: backend(*pair, [0, 1], [True, True]), reps=10)
+    print(f"2x{W}x{H} one batch (upload, flow, du on the card), CUDA events over 10 "
+          f"back-to-back batches: {ms_batch:.3f} ms ({2e3 / ms_batch:.2f} fields/s "
+          f"unpaced); with both rows reseeded after a drop {ms_reseed:.3f} ms "
+          f"({2e3 / ms_reseed:.2f} fields/s)")
+    profile_path(torch, "one 2x1080p batch", lambda: backend(*pair, [0, 1]),
+                 trace_dir, "batcher")
+    profile_path(torch, "one 2x1080p batch, both rows reseeded",
+                 lambda: backend(*pair, [0, 1], [True, True]), None, "batcher_reseed")
+    return {"batcher_2x1080p": counts}
+
+
+def junction_phase(torch, dev, trace_dir, H=480, W=640, n=100, dx=1.5,
+                   fps=30.0, seed=11) -> dict:
+    """The junction-masked LFN3 node at 640x480 on seeded weights, topic
+    mode: ``n`` image + junction PointCloud pairs (a grid of junctions
+    moving with the texture, boxes at the border clipped), one velocity per
+    synced pair, and du equal to FusedModelStream.step(frame, junction_mask)
+    on the same frames."""
+    from opticalflowcontainer_tpu_torch.models.liteflownet3 import LiteFlowNet3, estimate
+    from opticalflowcontainer_tpu_torch.runtime.bus import Bus
+    from opticalflowcontainer_tpu_torch.runtime.fused import (
+        FusedModelStream, make_fused_model_backend)
+    from opticalflowcontainer_tpu_torch.runtime.messages import (
+        Header, ImageMsg, PointCloudMsg)
+    from opticalflowcontainer_tpu_torch.runtime.nodes import (
+        JunctionMaskFlowNode, NodeParams)
+    from opticalflowcontainer_tpu_torch.runtime.velocity import junction_mask
+
+    model = seeded_liteflownet(torch, LiteFlowNet3, seed, dev)
+    frames = bgr_frames(torch, H, W, n, dx, seed=13, device=dev)
+    gx, gy = np.meshgrid(np.arange(4.0, W, 48.0), np.arange(2.0, H, 48.0))
+    grid = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    points = [grid + np.float32([dx * t, 0.0]) for t in range(n)]
+    stamps = [t / fps for t in range(n)]
+    backend = make_fused_model_backend(model, estimate, aggregate="median", device=dev)
+    backend.stream.warmup(frames[0], junction_mask((H, W), points[0]))
+    backend.stream.reset()
+    bus = Bus(namespace="")
+    node = JunctionMaskFlowNode(backend, NodeParams(
+        width=W, height=H, name="JUNCTION", aggregate="median", pixel_to_meter=1.0,
+        smooth_window=1), bus).attach()
+    vels, lat = [], []
+    bus.subscribe("/optical_flow/JUNCTION_velocity", lambda m: vels.append(m.x))
+    reset_counts()
+    try:
+        for t in range(n):
+            bus.publish("/camera/color/image_raw", ImageMsg(Header(stamps[t]), frames[t]))
+            t0 = time.perf_counter()
+            bus.publish("/junction_detector/junctions",
+                        PointCloudMsg(Header(stamps[t]), points[t]))
+            lat.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        node.stop()
+    counts = kernel_counts()
+    lat = np.array(lat[1:])
+    print(f"{W}x{H} LFN3 JunctionMaskFlowNode, {n} image + junction pairs "
+          f"({len(grid)} junctions, box 11): {len(vels)} velocities, "
+          f"{node.frames_failed} failed; per synced pair (host clock, junctions "
+          f"published to velocity published) p50 {np.percentile(lat, 50):.3f} ms, "
+          f"p99 {np.percentile(lat, 99):.3f} ms; launches {counts}")
+    require(len(vels) == n - 1 and node.frames_failed == 0, "one velocity per synced pair")
+    require(counts["warp_bilinear"] == LFN3_LAUNCHES["warp_bilinear"] * (n - 1)
+            and counts["local_correlation"] == LFN3_LAUNCHES["local_correlation"] * (n - 1),
+            "K3 and K4 ran on every pair")
+    ref = FusedModelStream(model, estimate, aggregate="median", device=dev)
+    ref.step(frames[0])
+    want = [float(ref.step(frames[t], junction_mask((H, W), points[t])))
+            for t in range(1, n)]
+    # the node published vx = du / dt with 1 m per px, dt from the stamps
+    du = [v * (stamps[t] - stamps[t - 1]) for t, v in zip(range(1, n), vels)]
+    d = np.abs(np.subtract(du, want))
+    print(f"node du vs FusedModelStream.step(frame, junction_mask) on the same "
+          f"frames: max|d| {d.max():.3e} px (bar 1e-6 px); du {min(du):.4f} .. "
+          f"{max(du):.4f} px")
+    require(d.max() <= 1e-6, "the node's du equals the stream's with the same mask")
+
+    bus2 = Bus(namespace="")
+    node2 = JunctionMaskFlowNode(backend, node.p, bus2).attach()
+
+    def ten_pairs():
+        for t in range(11):  # the first primes the node
+            bus2.publish("/camera/color/image_raw", ImageMsg(Header(stamps[t]), frames[t]))
+            bus2.publish("/junction_detector/junctions",
+                         PointCloudMsg(Header(stamps[t]), points[t]))
+
+    try:
+        profile_path(torch, "ten junction-node pairs", ten_pairs, trace_dir, "junction")
+    finally:
+        node2.stop()
+    return {"junction_lfn3": counts}
+
+
+def latency_phase(torch, dev, H=480, W=640, n=401, fps=30.0, seed=11) -> None:
+    """measure_stream_latency at 640x480, 400 frames paced at 30 fps, for
+    the Farneback stream (cv2's defaults, as phase 5) and for a
+    FusedModelStream over LFN3 (as phase 11); and measure_device_stream_ms."""
+    from opticalflowcontainer_tpu_torch.models.liteflownet3 import LiteFlowNet3, estimate
+    from opticalflowcontainer_tpu_torch.runtime.fused import (
+        FusedModelStream, measure_device_stream_ms, measure_stream_latency)
+
+    model = seeded_liteflownet(torch, LiteFlowNet3, seed, dev)
+    for label, stream in (("Farneback", None),
+                          ("LFN3", FusedModelStream(model, estimate, device=dev))):
+        r = measure_stream_latency(H, W, fps=fps, n_frames=n, stream=stream, device=dev)
+        print(f"measure_stream_latency {label} {W}x{H}, {r['n_measured']} frames at "
+              f"{fps:g} fps: p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+              f"mean {r['mean_ms']:.3f} ms, sustained {r['sustained_fps']:.2f} fps, "
+              f"held {r['held_rate']} (device {r['device']})")
+        require(r["n_measured"] == n - 1 and np.isfinite(r["p99_ms"]),
+                "every frame measured")
+    d_ms = measure_device_stream_ms(H, W, n_steps=30, device=dev)
+    print(f"measure_device_stream_ms Farneback {W}x{H}: {d_ms:.3f} ms a frame "
+          f"(30 chained steps between CUDA events, host dispatch gaps included)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1391,10 +1746,18 @@ def main() -> int:
         by_path["liteflownet"] = lfn_phase(torch, dev, args.trace, three=False)
     with phase("11 LFN3 FusedModelStream 640x480"):
         by_path["liteflownet3_stream"] = model_stream_phase(torch, dev, args.trace)
+    with phase("12 node graph 640x480 (demo, bringup_flow)"):
+        by_path.update(node_phase(torch, dev))
+    with phase("13 MultiStreamFlow 2x1080p at 60 fps"):
+        by_path.update(batcher_phase(torch, dev, args.trace))
+    with phase("14 LFN3 JunctionMaskFlowNode 640x480"):
+        by_path.update(junction_phase(torch, dev, args.trace))
+    with phase("15 measure_stream_latency 640x480"):
+        latency_phase(torch, dev)
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()
-                                 if k["name"] in n}
+                                 if n.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))

@@ -42,6 +42,15 @@ FLOW_KWARGS = frozenset({"pyr_scale", "levels", "winsize", "iterations",
                          "poly_n", "poly_sigma", "flags"})
 
 
+def check_flow_kwargs(caller: str, kwargs: dict) -> None:
+    """Raise TypeError naming ``caller`` for keywords outside FLOW_KWARGS
+    (a misspelt keyword forwarded to the flow would otherwise be lost)."""
+    unknown = set(kwargs) - FLOW_KWARGS
+    if unknown:
+        raise TypeError(f"{caller} got unexpected keyword(s) {sorted(unknown)}; "
+                        f"supported: {sorted(FLOW_KWARGS)}")
+
+
 @functools.lru_cache(maxsize=None)
 def _poly_exp_inverse(n: int, sigma: float) -> tuple:
     """1-D kernels {g, x g, x^2 g} and the needed elements of the inverse

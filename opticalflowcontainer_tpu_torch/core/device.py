@@ -7,6 +7,7 @@ exists rather than quietly running on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import shutil
@@ -39,6 +40,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` the calling thread's current CUDA device for a block
+    (a no-op for the CPU).  The current device is per thread: a node's or a
+    batcher's worker thread enters it before running a backend that was
+    built, and bound to its device, on another thread."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def find_nvcc() -> str | None:

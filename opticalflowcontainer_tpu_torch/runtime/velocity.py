@@ -1,9 +1,10 @@
 """Pixel flow -> metric velocity estimation (numpy only).
 
-The port's own copy of the reference's ``runtime/velocity.py``
-``VelocityEstimator``: mean or median of horizontal flow, optional boolean
+The port's own copy of the reference's ``runtime/velocity.py``:
+``VelocityEstimator`` (mean or median of horizontal flow, optional boolean
 mask, division by dt with the dt <= 0 -> 1e-3 clock-glitch guard, static or
-dynamic pixel_to_meter = median_depth / fx, and deque smoothing.
+dynamic pixel_to_meter = median_depth / fx, and deque smoothing) and
+``junction_mask``.
 """
 from __future__ import annotations
 
@@ -76,3 +77,18 @@ class VelocityEstimator:
         self._smooth.append(vx)
         return vx, float(np.mean(self._smooth))
 
+
+def junction_mask(
+    shape: tuple[int, int], points: np.ndarray, box: int = 11
+) -> np.ndarray:
+    """Boolean mask of ``box`` x ``box`` squares centered on each junction
+    point (x, y), clipped at the border; points outside the image mark
+    nothing (reference ``runtime/velocity.py:82``)."""
+    H, W = shape
+    mask = np.zeros((H, W), bool)
+    r = box // 2
+    for x, y in np.asarray(points).reshape(-1, 2):
+        xi, yi = int(round(x)), int(round(y))
+        if 0 <= xi < W and 0 <= yi < H:
+            mask[max(yi - r, 0) : yi + r + 1, max(xi - r, 0) : xi + r + 1] = True
+    return mask

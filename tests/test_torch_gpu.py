@@ -457,3 +457,94 @@ def test_model_stream_step_many_equals_step_on_card(cuda):
     per_frame = torch.stack([a.step(f) for f in frames[1:]])
     assert torch.equal(b.step_many(frames[1:]), per_frame)
     assert per_frame.device.type == "cuda" and bool(torch.isfinite(per_frame).all())
+
+
+def test_stateful_batcher_matches_per_stream_streams_on_card(cuda):
+    """The 2-stream stateful batcher on the card against one
+    FusedFarnebackStream per stream on the same frames, through a late
+    join and a dropped-pair reseed: du within 1e-4 px (each row is reduced
+    as a single stream reduces; K1 and K2 are per pixel)."""
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedFarnebackStream
+    from opticalflowcontainer_tpu_torch.runtime.multistream import (
+        make_stateful_batched_fused_farneback)
+
+    rng = np.random.default_rng(21)
+    base = rng.uniform(0, 255, (2, 120, 200)).astype(np.float32)
+    # [5, 2, 120, 160]: stream s moves s + 1 px a frame
+    f = np.stack([np.stack([base[s, :, (s + 1) * t:(s + 1) * t + 160]
+                            for s in range(2)]) for t in range(5)])
+    kw = dict(levels=3, winsize=15, iterations=3)
+    st = make_stateful_batched_fused_farneback(2, device=cuda, **kw)
+    refs = [FusedFarnebackStream(device=cuda, **kw) for _ in range(2)]
+    k1.farneback_update.launches = k2.blur_solve.launches = 0
+    worst = 0.0
+    # (rows, frame t, dropped): stream 1 joins at t=2 and skips t=3
+    for idxs, t, dropped in (([0], 1, None), ([0, 1], 2, None), ([0], 3, None),
+                             ([0, 1], 4, [False, True])):
+        got = st(f[t - 1][idxs], f[t][idxs], idxs, dropped)
+        want = []
+        for i in idxs:
+            if refs[i]._state is None or (dropped and dropped[idxs.index(i)]):
+                refs[i].reset()
+                refs[i].step(f[t - 1][i])
+            want.append(refs[i].step(f[t][i]))
+        worst = max(worst, float((got - torch.stack(want)).abs().max()))
+    assert worst <= 1e-4, worst
+    assert k1.farneback_update.launches > 0 and k2.blur_solve.launches > 0
+
+
+def test_flow_node_over_card_backend(cuda):
+    """A FlowNode over the card's Farneback backend against the same node
+    on the CPU, topic mode (1 m per px, dt 1 s: vx is the mean u): within
+    1e-3 px, the card-vs-CPU bar of the clip; then stream mode, where the
+    consumer thread launches the kernels: nothing fails, every thread
+    ends."""
+    from opticalflowcontainer_tpu_torch.runtime.bus import Bus
+    from opticalflowcontainer_tpu_torch.runtime.messages import Header, ImageMsg
+    from opticalflowcontainer_tpu_torch.runtime.nodes import (
+        FlowNode, NodeParams, make_farneback_backend)
+    from opticalflowcontainer_tpu_torch.runtime.sources import SyntheticCamera
+
+    cam = SyntheticCamera(width=160, height=120, n_frames=6, velocity_mps=0.05)
+    vels = {}
+    for dev in (cuda, "cpu"):
+        bus = Bus(namespace="")
+        node = FlowNode(make_farneback_backend(device=dev, levels=2, winsize=13,
+                                               iterations=2),
+                        NodeParams(pixel_to_meter=1.0, name="G"), bus).attach()
+        out = vels.setdefault(str(dev), [])
+        bus.subscribe("/optical_flow/G_velocity", lambda m, out=out: out.append(m.x))
+        for i in range(6):
+            bus.publish("/camera/color/image_raw",
+                        ImageMsg(Header(float(i)), cam.frame_at(i)))
+        node.stop()
+    assert len(vels[str(cuda)]) == 5
+    assert np.abs(np.subtract(vels[str(cuda)], vels["cpu"])).max() <= 1e-3
+    node = FlowNode(make_farneback_backend(device=cuda, levels=2, winsize=13,
+                                           iterations=2), NodeParams(name="T"))
+    before = k1.farneback_update.launches
+    try:
+        node.start_stream(SyntheticCamera(width=160, height=120, n_frames=8,
+                                          fps=30.0))
+        assert node.wait(timeout=60.0)
+    finally:
+        node.stop()
+    assert node.frames_failed == 0 and node.frames_processed > 0
+    assert k1.farneback_update.launches > before
+    assert not any(t.is_alive() for t in node._threads)
+
+
+def test_resize_area_unchanged_by_device(cuda):
+    """resize_area on a CUDA tensor equals the CPU's bit for bit: the same
+    gathers, products and sums in the same order, one kernel each."""
+    from opticalflowcontainer_tpu_torch.core.resize import resize_area, resize_nearest
+
+    rng = np.random.default_rng(22)
+    for shape, size in (((480, 640), (240, 320)), ((720, 1280, 3), (432, 768)),
+                        ((60, 80), (96, 128))):
+        img = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+        on_card = resize_area(img.to(cuda), size)
+        assert on_card.device.type == "cuda"
+        assert torch.equal(on_card.cpu(), resize_area(img, size))
+        m = img > 128
+        assert torch.equal(resize_nearest(m.to(cuda), size).cpu(), resize_nearest(m, size))
