@@ -53,11 +53,32 @@ seconds:
    on 200 uint8 BGR frames, p50 and p99 per frame, du against
    make_model_backend + VelocityEstimator on the same frames, step_many ==
    step bit for bit, and one upload and one scalar download per frame
-   counted under the profiler.
+   counted under the profiler;
+12. the node graph at 640x480: the demo (plain and --fused) and
+   bringup_flow with depth and camera_info;
+13. MultiStreamFlow: two 1080p gray streams at 60 fps for 6 s;
+14. the LFN3 JunctionMaskFlowNode at 640x480 in topic mode;
+15. measure_stream_latency at 640x480 for Farneback and LFN3;
+16. Lucas-Kanade at 640x480 with cv2's defaults: up to 500 corners of
+   good_features_to_track tracked on a pair with a known subpixel shift
+   (the interior error, the card against the CPU, ms per call and its
+   device operations), then LKVelocityNode on the SyntheticCamera at 30 fps
+   for 90 frames (every frame processed, none failed, the velocity within
+   10 mm/s of the ground truth);
+17. and 18. RAFT-small and RAFT (large) at 640x480 on seeded weights:
+   estimate at iters=12, the card against the CPU with fp32 convolutions,
+   the served flow (fp32 convolutions, which RAFT holds) against fp32 and
+   what TF32 would give (bars relative to the flow's RMS), final_only
+   against the stacked flows, B=1 latency, B=8
+   pairs/s and the device time by part (all-pairs product, pyramid,
+   lookup, convolutions, the rest); RAFT-small also as a 200-frame
+   FusedModelStream at iters=8, the demo's.  Phases 16-18 launch none of
+   K1-K4 (their wrappers' counters hold it).
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
-(tests/test_torch_pwcnet.py, test_torch_liteflownet*.py).  Here they
+(tests/test_torch_pwcnet.py, test_torch_liteflownet*.py,
+test_torch_raft.py).  Here they
 measure the kernels' path against the plain one, the card against the CPU,
 and time.
 
@@ -66,10 +87,10 @@ what a caller waits for, the wrapper's host time included) and device time
 by CUDA-graph replay (``graph_ms``: at the B=1 shapes a kernel is shorter
 than its own Python dispatch).
 
-Phases 4, 5 and 8-11 also run their path once under torch.profiler: device
-busy time, idle share, how much of the idle time the device spent waiting
-for the host to launch its next operation, and the stream synchronizations
-and host-to-device copies made.  ``--trace DIR`` keeps those profiles there
+Phases 4, 5, 8-14 and 16-18 also run their path once under
+torch.profiler: device busy time, idle share, how much of the idle time
+the device spent waiting for the host to launch its next operation, and
+the stream synchronizations and host-to-device copies made.  ``--trace DIR`` keeps those profiles there
 as Chrome traces.
 
 Then one JSON line with every kernel's launches, error, times and bound, and
@@ -168,16 +189,18 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def plane_waves(torch, H: int, W: int, shifts, seed: int, device) -> "torch.Tensor":
+def plane_waves(torch, H: int, W: int, shifts, seed: int, device,
+                wavelengths=(6, 24)) -> "torch.Tensor":
     """Frames [len(shifts), H, W] fp32 on ``device`` of one band-limited
-    texture (a sum of plane waves, wavelengths 6-24 px, parameters drawn
-    with numpy from ``seed``) translated exactly by each (dx, dy), computed
-    in fp64.  Longer waves leave Farneback (and cv2) short of the shift by
-    ~10%."""
+    texture (a sum of plane waves, wavelengths drawn from ``wavelengths``
+    px, parameters drawn with numpy from ``seed``) translated exactly by
+    each (dx, dy), computed in fp64.  Longer waves than 6-24 px leave
+    Farneback (and cv2) short of the shift by ~10%; shorter ones alias in
+    LK's 8x-reduced coarsest level."""
     rng = np.random.default_rng(seed)
     n = 12
     theta = rng.uniform(0, np.pi, n)
-    k = 2 * np.pi / rng.uniform(6, 24, n)
+    k = 2 * np.pi / rng.uniform(*wavelengths, n)
     kx, ky = (k * np.cos(theta)).tolist(), (k * np.sin(theta)).tolist()
     phi = rng.uniform(0, 2 * np.pi, n).tolist()
     amp = rng.uniform(4, 12, n).tolist()
@@ -1693,6 +1716,336 @@ def latency_phase(torch, dev, H=480, W=640, n=401, fps=30.0, seed=11) -> None:
           f"(30 chained steps between CUDA events, host dispatch gaps included)")
 
 
+def assert_no_kernel_launches(what: str) -> None:
+    """The paths of phases 16-18 reach none of K1-K4 (the reference's LK and
+    RAFT reach no Pallas kernel): a stray route through one shows here."""
+    counts = kernel_counts()
+    print(f"  {what}: launches of K1-K4 {counts} (expected none)")
+    require(not any(counts.values()), f"{what} launches none of K1-K4")
+
+
+def lk_phase(torch, dev, trace_dir, H=480, W=640, shift=(1.37, -0.62), n=90,
+             fps=30.0, velocity=0.05, seed=14) -> None:
+    """Phase 16: Lucas-Kanade at 640x480 with cv2's defaults (win 21,
+    max_level 3, 30 iterations, eps 0.01): up to 500 corners of
+    good_features_to_track tracked on a pair with a known subpixel shift
+    (interior error, card vs CPU, ms per call, device operations), then
+    LKVelocityNode on the SyntheticCamera at 30 fps for ``n`` frames."""
+    from opticalflowcontainer_tpu_torch.classical.lucas_kanade import (
+        calc_optical_flow_pyr_lk)
+    from opticalflowcontainer_tpu_torch.core.corners import good_features_to_track
+    from opticalflowcontainer_tpu_torch.runtime.bus import Bus
+    from opticalflowcontainer_tpu_torch.runtime.messages import Header, ImageMsg
+    from opticalflowcontainer_tpu_torch.runtime.nodes import LKVelocityNode, NodeParams
+    from opticalflowcontainer_tpu_torch.runtime.sources import SyntheticCamera
+
+    # waves of 12-48 px: the default 6-24 px alias at the coarsest of LK's
+    # four levels (8x reduced), and cv2 fails there as the port does
+    g = plane_waves(torch, H, W, [(0.0, 0.0), shift], seed=seed, device=dev,
+                    wavelengths=(12, 48))
+    f1, f2 = g.clamp(0, 255).round().to(torch.uint8)
+    good_features_to_track(f1, 500, 0.01, 8, device=dev)  # warm-up
+    reset_counts()
+    pts = good_features_to_track(f1, 500, 0.01, 8, device=dev)
+    calc_optical_flow_pyr_lk(f1, f2, pts, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    res = calc_optical_flow_pyr_lk(f1, f2, pts, device=dev)
+    tracked, status = res.pts.cpu().numpy(), res.status.cpu().numpy()
+    assert_no_kernel_launches("good_features_to_track + calc_optical_flow_pyr_lk")
+    r = 21 // 2 + 2
+    inner = ((pts[:, 0] >= r) & (pts[:, 0] < W - r) & (pts[:, 1] >= r)
+             & (pts[:, 1] < H - r))
+    ok = inner & (status == 1)
+    err = np.linalg.norm(tracked[ok] - (pts[ok] + np.float32(shift)), axis=-1)
+    print(f"{W}x{H} LK: {len(pts)} corners, {inner.sum()} interior, {ok.sum()} of "
+          f"them tracked; error against the shift {shift}: mean {err.mean():.4f}, "
+          f"p99 {np.percentile(err, 99):.4f}, max {err.max():.4f} px (bars: >= 95% "
+          f"tracked, mean < 0.05 px, cv2's parity bar)")
+    require(len(pts) >= 100, "at least 100 corners found")
+    require(ok.sum() >= 0.95 * inner.sum() and err.mean() < 0.05,
+            "LK recovers the known shift at the interior corners")
+    on_cpu = calc_optical_flow_pyr_lk(f1.cpu(), f2.cpu(), pts, device="cpu")
+    st_cpu = on_cpu.status.numpy()
+    both = (status == 1) & (st_cpu == 1)
+    d = np.linalg.norm(tracked[both] - on_cpu.pts.numpy()[both], axis=-1)
+    agree = float((status == st_cpu).mean())
+    print(f"{W}x{H} LK card vs CPU: status agreement {agree:.4f} (bar 0.99), "
+          f"distance among points both track mean {d.mean():.3e}, max {d.max():.3e} px "
+          f"(bars 1e-3 / 1e-2: fp32 sums in another order over 30 steps a level)")
+    require(agree >= 0.99 and d.mean() <= 1e-3 and d.max() <= 1e-2,
+            "the card's LK agrees with the CPU's")
+
+    def lk():
+        calc_optical_flow_pyr_lk(f1, f2, pts, device=dev)
+
+    lk_ms = [cuda_ms(lk, reps=1, warmup=0) for _ in range(20)]
+    gf_ms = [cuda_ms(lambda: good_features_to_track(f1, 500, 0.01, 8, device=dev),
+                     reps=1, warmup=0) for _ in range(10)]
+    print(f"{W}x{H} calc_optical_flow_pyr_lk, {len(pts)} points, CUDA events over 20 "
+          f"calls: median {np.median(lk_ms):.3f} ms, min {np.min(lk_ms):.3f} ms; "
+          f"good_features_to_track (500 corners, greedy pass on the host): median "
+          f"{np.median(gf_ms):.3f} ms")
+    profile_path(torch, "one calc_optical_flow_pyr_lk call", lk, trace_dir, "lk")
+
+    # the node: the synthetic camera at 30 fps on its own thread, the node's
+    # callback in that thread (direct delivery), frames stamped on capture
+    bus = Bus(namespace="")
+    p2m = 0.000857
+    cam = SyntheticCamera(bus, width=W, height=H, fps=fps, n_frames=n,
+                          velocity_mps=velocity, pixel_to_meter=p2m)
+    t_in, t_out, smooth = {}, {}, []
+    bus.subscribe("/camera/color/image_raw",
+                  lambda m: t_in.setdefault(m.header.stamp, time.perf_counter()))
+    node = LKVelocityNode(bus, NodeParams(name="LK", aggregate="median",
+                                          pixel_to_meter=p2m), device=dev)
+    bus.subscribe("/optical_flow/LK_velocity",
+                  lambda m: t_out.setdefault(m.header.stamp, time.perf_counter()))
+    bus.subscribe("/optical_flow/LK_smooth_velocity", lambda m: smooth.append(m.x))
+    # warm the node's shapes (200 padded points) outside the run
+    warm = Bus(namespace="")
+    wnode = LKVelocityNode(warm, node.p, device=dev)
+    for i in range(2):
+        warm.publish("/camera/color/image_raw", ImageMsg(Header(i / fps), cam.frame_at(i)))
+    wnode.stop()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cam.start()
+        cam._thread.join(timeout=120)
+        require(not cam._thread.is_alive(), "the camera's thread ended")
+    finally:
+        cam.stop()
+        node.stop()
+    wall = time.perf_counter() - t0
+    assert_no_kernel_launches("LKVelocityNode")
+    lat = np.array([(t_out[k] - t_in[k]) * 1e3 for k in t_out])
+    err = abs(smooth[-1] - velocity) if smooth else float("inf")
+    print(f"{W}x{H} LKVelocityNode, SyntheticCamera {n} frames at {fps:g} fps: "
+          f"processed {node.frames_processed}, failed {node.frames_failed}, "
+          f"{len(smooth)} smoothed velocities in {wall:.3f} s; per frame (host clock, "
+          f"image published to velocity published) p50 {np.percentile(lat, 50):.3f} "
+          f"ms, p99 {np.percentile(lat, 99):.3f} ms; final smoothed velocity "
+          f"{smooth[-1] if smooth else None} m/s vs {velocity} m/s: error "
+          f"{err * 1e3:.3f} mm/s (bar 10 mm/s)")
+    require(node.frames_failed == 0 and node.frames_processed == n - 1,
+            "every frame after the first processed, none failed")
+    require(err < 0.01, "the node's velocity within 10 mm/s of the ground truth")
+
+
+def seeded_raft(torch, cls, seed: int, device):
+    """RAFT-small or RAFT (``cls``) at the packaged architecture's full
+    width, every convolution He-normal (std sqrt(2 / fan_in)) from a seeded
+    torch.Generator with zero biases, as seeded_pwcnet."""
+    g = torch.Generator().manual_seed(seed)
+    model = cls()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+                m.bias.zero_()
+    return model.to(device).eval()
+
+
+@contextlib.contextmanager
+def raft_ranges(torch):
+    """RAFT's all-pairs product, its pyramid (with the packing) and its
+    lookup inside profiler ranges, for the split of the device time."""
+    from unittest import mock
+
+    from opticalflowcontainer_tpu_torch.models import raft
+
+    def ranged(name, fn):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for attr, name in (("all_pairs_correlation", "raft::allpairs_product"),
+                           ("corr_pyramid", "raft::pyramid"),
+                           ("pack_pyramid", "raft::pyramid"),
+                           ("lookup_packed", "raft::lookup")):
+            stack.enter_context(mock.patch.object(
+                raft, attr, ranged(name, getattr(raft, attr))))
+        yield
+
+
+RAFT_RANGES = ("raft::allpairs_product", "raft::pyramid", "raft::lookup")
+
+
+def raft_split(torch, fn) -> dict | None:
+    """Device ms of one ``fn()`` call (an estimate) by part: the all-pairs
+    product, the pyramid, the lookup, the convolutions (cuDNN's kernels and
+    layout transposes) and the rest; None when the profiler recorded no
+    device time.  A part is the device time of the kernels launched inside
+    its range (the ranges' own spans on the device timeline, idle gaps
+    included, are left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with raft_ranges(torch), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and e.key not in RAFT_RANGES) / 1e3
+    if busy <= 0:
+        return None
+
+    def total(key):
+        return sum(e.device_time_total for e in events
+                   if e.key == key and e.device_type == DeviceType.CPU) / 1e3
+
+    split = {"allpairs_product": total("raft::allpairs_product"),
+             "pyramid": total("raft::pyramid"), "lookup": total("raft::lookup"),
+             "convolutions": total("aten::convolution")}
+    split["rest"] = busy - sum(split.values())
+    split["busy"] = busy
+    return split
+
+
+def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
+               n=201, seed=17) -> None:
+    """Phase 17 (RAFT-small) or 18 (RAFT, ``large``) at 640x480 on seeded
+    weights: estimate at iters=12 launches none of K1-K4; card vs CPU with
+    fp32 convolutions at 192x128; the served flow (the model holds its
+    convolutions in fp32) against fp32, and what TF32 convolutions would
+    give; final_only against the stacked flows; B=1 latency over 50 calls,
+    B=8 pairs/s; the device time by part; and for RAFT-small a 200-frame
+    FusedModelStream at iters=8, as the demo serves it."""
+    import functools
+    from unittest import mock
+
+    from opticalflowcontainer_tpu_torch.models import raft
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
+
+    cls, label = (raft.RAFT, "RAFT") if large else (raft.RAFTSmall, "RAFT-small")
+    model = seeded_raft(torch, cls, seed, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    est = functools.partial(raft.estimate, iters=iters)
+    i1, i2 = image_pairs(torch, H, W, 1, dev)
+    est(model, i1, i2)  # warm-up: library load, cuDNN heuristics
+    torch.cuda.synchronize()
+    reset_counts()
+    flow = est(model, i1, i2)
+    torch.cuda.synchronize()
+    assert_no_kernel_launches(f"{label} estimate")
+    require(tuple(flow.shape) == (1, H, W, 2), f"flow shape {tuple(flow.shape)}")
+    require(bool(torch.isfinite(flow).all()), "flow is finite")
+    rms = float(flow.square().mean().sqrt())
+    print(f"{label} ({n_params} parameters, seeded) at {W}x{H}, iters={iters}: flow "
+          f"RMS {rms:.3f} px, max |.| {float(flow.abs().max()):.3f} px")
+
+    def latency(x1, x2, reps, warm=5):
+        out = []
+        for _ in range(warm + reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            est(model, x1, x2)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return np.array(out[warm:])
+
+    # Random weights make absolute pixels meaningless, so the bars are
+    # relative to the flow's RMS (PERF.md's findings say why these): the card
+    # against the CPU in fp32, mean 1e-3 and max 5e-2 of it (fp32 sums in
+    # another order, carried through 12 recurrent steps); the served flow
+    # against fp32 convolutions, mean 1e-2 of it.  RAFT serves fp32
+    # convolutions (models/raft.py): TF32 ones missed that bar here
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        fp32 = est(model, i1, i2)
+        with torch.inference_mode():
+            x1, x2 = (t.permute(0, 3, 1, 2) for t in (i1, i2))
+            stacked = model(x1, x2, iters=iters)
+            final = model(x1, x2, iters=iters, final_only=True)
+        require(torch.equal(final, stacked[-1]),
+                "final_only equals the last of the stacked flows")
+        s1, s2 = image_pairs(torch, 128, 192, 1, "cpu")
+        cpu_model = seeded_raft(torch, cls, seed, "cpu")
+        on_card = est(model, s1, s2).cpu()
+        on_cpu = est(cpu_model, s1, s2)
+        ref = float(on_cpu.square().mean().sqrt())
+        d = (on_card - on_cpu).abs()
+        print(f"192x128 card vs CPU (fp32 convolutions): mean|d| {float(d.mean()):.3e}, "
+              f"max|d| {float(d.max()):.3e} px on a flow of RMS {ref:.3f} px (bars "
+              f"1e-3 / 5e-2 of the RMS)")
+        require(float(d.mean()) <= 1e-3 * ref and float(d.max()) <= 5e-2 * ref,
+                "card agrees with the CPU")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    d = (flow - fp32).abs()
+    print(f"{W}x{H} served flow vs fp32 convolutions: mean|d| {float(d.mean()):.3e} "
+          f"px, max {float(d.max()):.3e} px (bar: mean 1e-2 of the RMS)")
+    require(float(d.mean()) <= 1e-2 * rms, "the served flow within the bar of fp32")
+    lat = latency(i1, i2, 50)
+    # what TF32 convolutions (PyTorch's default for cuDNN) would give
+    with mock.patch.object(raft, "fp32_convolutions", contextlib.nullcontext):
+        require(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 is PyTorch's default")
+        d = (est(model, i1, i2) - fp32).abs()
+        tf32_ms = latency(i1, i2, 50)
+    print(f"{W}x{H} TF32 convolutions (not served) vs fp32: mean|d| "
+          f"{float(d.mean()):.3e} px ({float(d.mean()) / rms:.3e} of the RMS), p99 "
+          f"{float(d.flatten().kthvalue(int(0.99 * d.numel())).values):.3e}, max "
+          f"{float(d.max()):.3e} px (the served bar: mean 1e-2 of the RMS)")
+    print(f"{W}x{H} {label} estimate at B=1, iters={iters}, CUDA events over 50 "
+          f"calls: median {np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} "
+          f"ms (served: fp32 convolutions); with TF32 convolutions median "
+          f"{np.median(tf32_ms):.3f} ms")
+    b1, b2 = image_pairs(torch, H, W, 8, dev)
+    torch.cuda.reset_peak_memory_stats()
+    lat8 = latency(b1, b2, 10)
+    print(f"{W}x{H} {label} estimate at B=8: median {np.median(lat8):.3f} ms per "
+          f"call, {8e3 / np.median(lat8):.2f} pairs/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    tag = "raft_large" if large else "raft_small"
+    for batch, x1, x2 in ((1, i1, i2), (8, b1, b2)):
+        profile_path(torch, f"one {label} estimate at B={batch}",
+                     lambda: est(model, x1, x2), trace_dir, f"{tag}_b{batch}")
+        split = raft_split(torch, lambda: est(model, x1, x2))
+        print(f"{label} device time by part, one estimate at B={batch} (profiler "
+              f"on): " + ("not measured (no device time recorded)" if split is None
+                          else ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())))
+    del b1, b2
+    if large:
+        return
+
+    frames = bgr_frames(torch, H, W, n, 1.5, seed=18, device=dev)
+    stream = FusedModelStream(model, functools.partial(raft.estimate, iters=8),
+                              device=dev)
+    stream.warmup(frames[0])
+    reset_counts()
+    require(stream.step(frames[0]) is None, "first frame seeds the state")
+    dus, lat = [], []
+    for f in frames[1:]:
+        t0 = time.perf_counter()
+        dus.append(float(stream.step(f)))  # syncs
+        lat.append((time.perf_counter() - t0) * 1e3)
+    assert_no_kernel_launches("the RAFT-small FusedModelStream")
+    lat = np.array(lat)
+    print(f"{W}x{H} RAFT-small FusedModelStream (iters=8, the demo's), {n - 1} uint8 "
+          f"BGR frames (host clock, numpy frame to synced du): p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms, "
+          f"mean {lat.mean():.3f} ms, min {lat.min():.3f} ms, max {lat.max():.3f} ms; "
+          f"du {min(dus):.4f} .. {max(dus):.4f} px")
+    require(all(np.isfinite(dus)), "the stream's du is finite")
+
+    def ten_steps():
+        for f in frames[1:11]:
+            float(stream.step(f))
+
+    prof = profile_path(torch, "ten RAFT-small stream steps", ten_steps, trace_dir,
+                        "raft_stream")
+    require(prof is not None and prof["d2h"] == 10 and prof["h2d"] <= 10,
+            "one scalar download and at most one frame upload per step")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1754,6 +2107,12 @@ def main() -> int:
         by_path.update(junction_phase(torch, dev, args.trace))
     with phase("15 measure_stream_latency 640x480"):
         latency_phase(torch, dev)
+    with phase("16 Lucas-Kanade 640x480 (calc_optical_flow_pyr_lk, LKVelocityNode)"):
+        lk_phase(torch, dev, args.trace)
+    with phase("17 RAFT-small 640x480 (estimate, FusedModelStream)"):
+        raft_phase(torch, dev, args.trace, large=False)
+    with phase("18 RAFT 640x480"):
+        raft_phase(torch, dev, args.trace, large=True)
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

@@ -1,4 +1,5 @@
-"""Classical optical flow with cv2-parity APIs (Farneback)."""
+"""Classical optical flow with cv2-parity APIs (Farneback, pyramidal
+Lucas-Kanade)."""
 from .farneback import (
     OPTFLOW_FARNEBACK_GAUSSIAN,
     OPTFLOW_USE_INITIAL_FLOW,
@@ -8,11 +9,14 @@ from .farneback import (
     farneback_stream_planes,
     farneback_stream_step,
 )
+from .lucas_kanade import LKResult, calc_optical_flow_pyr_lk
 
 __all__ = [
     "OPTFLOW_FARNEBACK_GAUSSIAN",
     "OPTFLOW_USE_INITIAL_FLOW",
+    "LKResult",
     "calc_optical_flow_farneback",
+    "calc_optical_flow_pyr_lk",
     "farneback_batched",
     "farneback_clip",
     "farneback_stream_planes",

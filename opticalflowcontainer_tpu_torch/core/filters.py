@@ -1,12 +1,15 @@
 """cv2-parity separable filtering in plain PyTorch.
 
 Counterpart of the reference's ``core/filters.py`` for what the Farneback
-path needs: OpenCV's ``getGaussianKernel`` and a separable correlation with
-OpenCV's border modes.  Border conventions:
+and Lucas-Kanade paths need: OpenCV's ``getGaussianKernel``, a separable
+correlation with OpenCV's border modes, and the Scharr derivatives of the
+LK tracker.  Border conventions:
 
-- ``BORDER_REFLECT_101`` == ``numpy.pad(mode="reflect")``  (GaussianBlur)
+- ``BORDER_REFLECT_101`` == ``numpy.pad(mode="reflect")``  (GaussianBlur,
+  pyrDown)
 - ``BORDER_REPLICATE``   == ``numpy.pad(mode="edge")``     (inside the
-  Farneback polynomial expansion and the winsize blur)
+  Farneback polynomial expansion and the winsize blur, the Scharr
+  derivatives)
 
 Filters take ``[..., H, W]`` float tensors.  The correlation is a sum of
 scaled shifted slices, the same order of operations as the reference's CPU
@@ -80,3 +83,14 @@ def _sepconv(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray,
     x = _pad2d(img.float(), len(ky) // 2, len(kx) // 2, border)
     x = _corr1d(x, ky, x.dim() - 2)
     return _corr1d(x, kx, x.dim() - 1)
+
+
+def scharr_deriv(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3x3 Scharr x and y derivatives scaled by 1/32, the gradient operator
+    of OpenCV's LK tracker (``calcScharrDeriv``: smoothing [3, 10, 3] / 32,
+    derivative [-1, 0, 1]), replicate border, over the trailing [H, W]."""
+    smooth = np.array([3.0, 10.0, 3.0]) / 32.0
+    deriv = np.array([-1.0, 0.0, 1.0])
+    gx = _sepconv(img, deriv, smooth, "replicate")
+    gy = _sepconv(img, smooth, deriv, "replicate")
+    return gx, gy

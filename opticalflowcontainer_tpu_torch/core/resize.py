@@ -1,12 +1,16 @@
-"""Resizes.  Bilinear with half-pixel centres (reference ``core/resize.py``)
-for the Farneback pyramid, and cv2's INTER_AREA and INTER_NEAREST for the
-flow node's fixed net size (below).
+"""Resizes.  Bilinear with an explicit grid convention (reference
+``core/resize.py``), and cv2's INTER_AREA and INTER_NEAREST for the flow
+node's fixed net size (below).
 
-Bilinear:
-src = (dst + 0.5) * src_n / dst_n - 0.5, edge clamped: the convention of
-cv2.resize(INTER_LINEAR) and torch interpolate(align_corners=False), which
-the Farneback pyramid and the inter-level flow resize use.  Gather form: one
-``index_select`` pair and a lerp per axis, fp32.
+Bilinear, gather form (one ``index_select`` pair and a lerp per axis, fp32):
+
+- half-pixel centres (the default): src = (dst + 0.5) * src_n / dst_n - 0.5,
+  edge clamped: the convention of cv2.resize(INTER_LINEAR) and torch
+  interpolate(align_corners=False), which the Farneback pyramid, the
+  inter-level flow resize and the models' estimate contract use;
+- ``align_corners=True``: src = dst * (src_n - 1) / (dst_n - 1), torch
+  interpolate(align_corners=True), for the resize pyramid of
+  :func:`~.pyramid.image_pyramid_resize`.
 """
 from __future__ import annotations
 
@@ -18,12 +22,16 @@ import torch
 
 
 @functools.lru_cache(maxsize=256)
-def _taps(src: int, dst: int, device: torch.device):
+def _taps(src: int, dst: int, device: torch.device, align_corners: bool = False):
     """(lower index, upper index, upper weight) of each output position,
     kept on ``device``: an upload per call would synchronize the stream."""
-    # fp32 coordinates, as the reference computes them on the device
     i = np.arange(dst, dtype=np.float64)
-    c = ((i + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    if align_corners and dst > 1:
+        c = i * ((src - 1) / (dst - 1))
+    else:
+        c = (i + 0.5) * (src / dst) - 0.5
+    # fp32 coordinates, as the reference computes them on the device
+    c = c.astype(np.float32)
     c0 = np.floor(c)
     w1 = c - c0
     c0i = c0.astype(np.int64)
@@ -31,11 +39,12 @@ def _taps(src: int, dst: int, device: torch.device):
         np.clip(c0i, 0, src - 1), np.clip(c0i + 1, 0, src - 1), w1))
 
 
-def _resize_axis(x: torch.Tensor, dim: int, dst: int) -> torch.Tensor:
+def _resize_axis(x: torch.Tensor, dim: int, dst: int,
+                 align_corners: bool) -> torch.Tensor:
     src = x.shape[dim]
     if src == dst:
         return x
-    lo, hi, w1 = _taps(src, dst, x.device)
+    lo, hi, w1 = _taps(src, dst, x.device, align_corners)
     a = x.index_select(dim, lo)
     b = x.index_select(dim, hi)
     shape = [1] * x.dim()
@@ -44,11 +53,12 @@ def _resize_axis(x: torch.Tensor, dim: int, dst: int) -> torch.Tensor:
     return a * (1 - w1) + b * w1
 
 
-def resize_bilinear(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+def resize_bilinear(img: torch.Tensor, size: tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
     """Resize the trailing two dims of a float [..., H, W] tensor to
-    ``size = (H', W')``."""
-    out = _resize_axis(img, img.dim() - 2, size[0])
-    return _resize_axis(out, img.dim() - 1, size[1])
+    ``size = (H', W')``, half-pixel centres unless ``align_corners``."""
+    out = _resize_axis(img, img.dim() - 2, size[0], align_corners)
+    return _resize_axis(out, img.dim() - 1, size[1], align_corners)
 
 
 # ------------------------------------------------ cv2 INTER_AREA / NEAREST

@@ -17,6 +17,9 @@ Layout: NCHW activations, torch's OIHW / IOHW weights.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -61,6 +64,37 @@ class Deconv(nn.ConvTranspose2d):
                          groups=groups)
 
 
+_fp32_lock = threading.Lock()
+_fp32_depth = 0
+_fp32_saved = (False, True)
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN convolutions in fp32 (no TF32) for the block, each algorithm
+    chosen by timing (``cudnn.benchmark``): on an H100 cuDNN's fp32
+    heuristics made RAFT's B=8 estimate 2-6x slower (PERF.md,
+    "Findings").  The switches are PyTorch's process-wide
+    ``torch.backends.cudnn.benchmark`` and ``allow_tf32``: blocks entered
+    from several threads at once are counted, the first saves the settings
+    and the last restores them, and convolutions that other threads run
+    meanwhile get the same settings."""
+    global _fp32_depth, _fp32_saved
+    cudnn = torch.backends.cudnn
+    with _fp32_lock:
+        if _fp32_depth == 0:
+            _fp32_saved = (cudnn.benchmark, cudnn.allow_tf32)
+            cudnn.benchmark, cudnn.allow_tf32 = True, False
+        _fp32_depth += 1
+    try:
+        yield
+    finally:
+        with _fp32_lock:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                cudnn.benchmark, cudnn.allow_tf32 = _fp32_saved
+
+
 def _pad_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
@@ -71,10 +105,12 @@ def _to_nchw(img, device: torch.device) -> torch.Tensor:
     return x.to(device, torch.float32).permute(0, 3, 1, 2)
 
 
-def estimate_resized(model: nn.Module, img1, img2, multiple: int) -> torch.Tensor:
+def estimate_resized(model: nn.Module, img1, img2, multiple: int,
+                     **forward_kwargs) -> torch.Tensor:
     """The reference's estimate contract, shared by the zoo: ``img1``,
     ``img2`` [H, W, 3] or [B, H, W, 3] (numpy or tensor) are resized to
-    multiples of ``multiple``, run through ``model``, and its flow (at any
+    multiples of ``multiple``, run through ``model`` (with
+    ``forward_kwargs``), and its flow (at any
     fraction of the input's size) is resized back to H x W with u and v
     rescaled by W/Wp and H/Hp.  Returns the flow [(B,) H, W, 2] on the
     model's device.  Callers run it under ``torch.inference_mode()``."""
@@ -83,7 +119,8 @@ def estimate_resized(model: nn.Module, img1, img2, multiple: int) -> torch.Tenso
     x1, x2 = (_to_nchw(i if batched else i[None], device) for i in (img1, img2))
     H, W = x1.shape[-2:]
     Hp, Wp = _pad_to(H, multiple), _pad_to(W, multiple)
-    flow = model(resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp)))
+    flow = model(resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp)),
+                 **forward_kwargs)
     flow = resize_bilinear(flow, (H, W))
     # Python scalars are rounded to fp32 first, as the reference's fp32 scale
     flow = torch.stack([flow[:, 0] * (W / Wp), flow[:, 1] * (H / Hp)], -1)

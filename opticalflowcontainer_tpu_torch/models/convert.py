@@ -1,6 +1,7 @@
 """Carry the reference's flax weights (flat npz, ``a/b/c`` keys) into the
 port's modules (reference ``models/common.py`` ``load_flat_npz`` and
-``models/raft.py`` ``_load_weights_npz``).
+``models/raft.py`` ``_load_weights_npz``): PWC-Net, LiteFlowNet,
+LiteFlowNet3, RAFT-small and RAFT (large).
 
 Names map one to one: the module at ``decoder2.dense0`` takes the flax
 parameters under ``decoder2/dense0``.  A :class:`~.common.Conv` wraps a
@@ -24,6 +25,7 @@ from .common import AxisConv, Conv, Deconv
 from .liteflownet import LiteFlowNet
 from .liteflownet3 import LiteFlowNet3
 from .pwcnet import PWCNet
+from .raft import RAFT, RAFTSmall
 
 # The reference package keeps its packaged weights here; they are read as
 # data files, never imported.
@@ -129,3 +131,15 @@ def load_liteflownet3_synth(device=None) -> LiteFlowNet3 | None:
     """:class:`LiteFlowNet3` with the packaged ``liteflownet3_synth.npz``,
     as :func:`load_pwcnet_synth`."""
     return _load_synth("liteflownet3_synth.npz", LiteFlowNet3(), device)
+
+
+def load_raft_small_synth(device=None) -> RAFTSmall | None:
+    """:class:`RAFTSmall` with the packaged ``raft_small_synth.npz``, as
+    :func:`load_pwcnet_synth`."""
+    return _load_synth("raft_small_synth.npz", RAFTSmall(), device)
+
+
+def load_raft_synth(device=None) -> RAFT | None:
+    """:class:`RAFT` (large) with the packaged ``raft_large_synth.npz``, as
+    :func:`load_pwcnet_synth`."""
+    return _load_synth("raft_large_synth.npz", RAFT(), device)

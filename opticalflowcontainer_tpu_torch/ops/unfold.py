@@ -1,13 +1,14 @@
-"""The distance-weighted neighbourhood sum of LiteFlowNet's and LFN3's
-Regularization (reference ``ops/unfold.py`` ``unfold`` and
-``models/liteflownet.py:124-130``).
+"""Neighbourhoods of each pixel: the distance-weighted neighbourhood sum of
+LiteFlowNet's and LFN3's Regularization (reference ``ops/unfold.py``
+``unfold`` and ``models/liteflownet.py:124-130``), and the k x k patch stack
+itself (:func:`unfold`), which RAFT's convex upsampler takes.
 
 The reference unfolds the flow into its k x k neighbourhoods ([H, W, k*k,
 2]), multiplies by the k*k distance weights and reduces with a 1x1 conv
 (``scale_x`` / ``scale_y``).  Here the same sum runs tap by tap over one
 zero-padded copy of the flow, so the k*k stack is never materialized.  The
 reference computes it in XLA, outside any Pallas kernel, so it stays plain
-PyTorch on every device.
+PyTorch on every device, as does :func:`unfold`.
 """
 from __future__ import annotations
 
@@ -41,3 +42,16 @@ def neighbourhood_sum(x: torch.Tensor, weights: torch.Tensor,
         term = xp[:, :, dy:dy + H, dx:dx + W]
         acc = term * w if acc is None else acc.addcmul_(term, w)
     return acc + bias.reshape(1, C, 1, 1)
+
+
+def unfold(x: torch.Tensor, ksize: int, padding: int | None = None) -> torch.Tensor:
+    """[..., C, H, W] -> [..., C, k*k, H, W]: the zero-padded k x k
+    neighbourhood of each pixel (reference ``ops/unfold.py`` ``unfold``, in
+    channels-first layout), patch index dy * k + dx; padding k // 2 by
+    default keeps the spatial dims."""
+    if padding is None:
+        padding = ksize // 2
+    H, W = x.shape[-2], x.shape[-1]
+    xp = F.pad(x, (padding, padding, padding, padding))
+    return torch.stack([xp[..., dy:dy + H, dx:dx + W]
+                        for dy in range(ksize) for dx in range(ksize)], dim=-3)

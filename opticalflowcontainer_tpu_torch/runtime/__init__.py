@@ -21,8 +21,8 @@ Topic names follow the reference system:
 - ``/optical_flow/image_live_feed|image_flow|image_mask`` (ImageMsg)
 
 Not ported yet (ROADMAP module item 3 and those it names): the video-file
-and frame-directory sources, the junction detector node, the Lucas-Kanade
-node, the junction tracker and the adaptive backend.
+and frame-directory sources, the junction detector node, the junction
+tracker and the adaptive backend.
 """
 from .bus import Bus, Subscription, ApproximateTimeSynchronizer
 from .messages import (
@@ -39,6 +39,7 @@ from .nodes import (
     FlowNode,
     DepthNode,
     JunctionMaskFlowNode,
+    LKVelocityNode,
     NodeParams,
     make_farneback_backend,
     make_model_backend,
@@ -73,6 +74,7 @@ __all__ = [
     "FlowNode",
     "DepthNode",
     "JunctionMaskFlowNode",
+    "LKVelocityNode",
     "NodeParams",
     "make_farneback_backend",
     "make_model_backend",

@@ -1,7 +1,9 @@
-"""End-to-end runtime demo: synthetic camera -> Farneback flow node ->
-velocity topics, on the card (``--cpu`` for the CPU):
+"""End-to-end runtime demo: synthetic camera -> flow node (Farneback, or
+RAFT-small / RAFT on the packaged weights) -> velocity topics, on the card
+(``--cpu`` for the CPU):
 
     python -m opticalflowcontainer_tpu_torch.runtime.demo [--fused] [--cpu]
+        [--model farneback|raft|raft_large]
 
 The synthetic scene translates at a known metric velocity, so the printed
 velocities should converge to the ground truth: a self-checking run of the
@@ -12,6 +14,7 @@ the final smoothed velocity misses the ground truth by 10 mm/s or more.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 
@@ -31,13 +34,16 @@ def run(argv=None) -> dict:
                     help="fused device path: frame -> flow -> velocity scalar "
                          "on the device, one scalar to the host per frame "
                          "(runtime.fused)")
-    ap.add_argument("--model", default="farneback", choices=("farneback",),
-                    help="flow backend (the learned models of the reference's "
-                         "demo come with their ports)")
+    ap.add_argument("--model", default="farneback",
+                    choices=("farneback", "raft", "raft_large"),
+                    help="flow backend; the learned models use the packaged "
+                         "weights and the fused model path (8 iterations). "
+                         "The reference's neuflow backend and --bf16 serving "
+                         "come with NeuFlow's port")
     args = ap.parse_args(argv)
 
     from .bus import Bus
-    from .fused import make_fused_farneback_backend
+    from .fused import make_fused_farneback_backend, make_fused_model_backend
     from .nodes import FlowNode, NodeParams, make_farneback_backend
     from .sources import SyntheticCamera
 
@@ -54,7 +60,21 @@ def run(argv=None) -> dict:
         pixel_to_meter=pixel_to_meter,
     )
     fb_kwargs = dict(levels=2, winsize=13, iterations=2)
-    if args.fused:
+    out = {"frames": args.frames, "frames_processed": 0, "frames_dropped": 0,
+           "frames_failed": 0, "published": 0, "seconds": 0.0, "ended": True,
+           "final_vx": None, "error_mps": None, "exit_code": 1}
+    if args.model != "farneback":
+        from ..models import convert, raft
+
+        load = (convert.load_raft_synth if args.model == "raft_large"
+                else convert.load_raft_small_synth)
+        model = load(device=device)
+        if model is None:
+            print(f"no packaged weights for {args.model}")
+            return out
+        backend = make_fused_model_backend(
+            model, functools.partial(raft.estimate, iters=8), device=device)
+    elif args.fused:
         backend = make_fused_farneback_backend(device=device, **fb_kwargs)
     else:
         backend = make_farneback_backend(device=device, **fb_kwargs)
@@ -68,7 +88,7 @@ def run(argv=None) -> dict:
     # warm up (the kernels' library loads, the allocator fills) before
     # streaming, so that no frame is dropped to it
     f0, f1 = cam.frame_at(0), cam.frame_at(1)
-    if args.fused:
+    if args.fused or args.model != "farneback":
         backend.stream.warmup(f0)
         backend.stream.reset()
     else:
@@ -89,11 +109,10 @@ def run(argv=None) -> dict:
     node.stop()
     bus.unsubscribe(sub)
     elapsed = time.time() - t0
-    out = {"frames": args.frames, "frames_processed": node.frames_processed,
-           "frames_dropped": node.frames_dropped,
-           "frames_failed": node.frames_failed, "published": len(received),
-           "seconds": elapsed, "ended": ended, "final_vx": None,
-           "error_mps": None, "exit_code": 1}
+    out.update(frames_processed=node.frames_processed,
+               frames_dropped=node.frames_dropped,
+               frames_failed=node.frames_failed, published=len(received),
+               seconds=elapsed, ended=ended)
     if not received:
         print("no velocities produced (all frames dropped or failed?)")
         return out

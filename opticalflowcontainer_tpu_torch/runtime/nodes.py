@@ -15,9 +15,9 @@ backends of :mod:`.fused` return one aggregated displacement instead.  A
 backend binds its device when it is built and makes it current in whatever
 thread runs it.  The nodes never pick a device.  Velocity estimation,
 depth/fx-driven scaling, junction masking, smoothing, debug-image topics
-and CSV timing hang off the node.  The reference's junction-detector node
-(C++ on OpenCV) and its Lucas-Kanade node are not ported yet (ROADMAP
-module items 3 and 4).
+and CSV timing hang off the node.  :class:`LKVelocityNode` is the sparse
+Lucas-Kanade counterpart.  The reference's junction-detector node (C++ on
+OpenCV) is not ported yet (ROADMAP module item 3).
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from ..classical.farneback import calc_optical_flow_farneback, check_flow_kwargs
+from ..classical.lucas_kanade import calc_optical_flow_pyr_lk
+from ..core.corners import good_features_to_track
 from ..core.device import device_scope, resolve_device
 from ..core.resize import resize_area, resize_nearest
 from .bus import ApproximateTimeSynchronizer, Bus
@@ -354,6 +356,119 @@ class JunctionMaskFlowNode(FlowNode):
                 ImageMsg(img_msg.header, (mask * 255).astype(np.uint8), "mono8"),
             )
         self._image_callback(img_msg, mask)
+
+
+class LKVelocityNode:
+    """Sparse Lucas-Kanade velocity node: track good features between frames
+    and publish the median (or mean) of their x-displacement as metric
+    velocity: the reference's classical ``lucas_kanade_node`` (BASELINE
+    config 2).
+
+    Corners are re-detected every ``redetect_every`` frames, and whenever
+    fewer than 4 points survive, with :func:`~..core.corners.good_features_to_track`
+    (cv2's ``goodFeaturesToTrack(gray, max_corners, 0.01, 8)``) and tracked
+    by :func:`~..classical.lucas_kanade.calc_optical_flow_pyr_lk` in
+    between.  The point count is padded to ``max_corners`` with the image
+    centre (one static shape for the stream); the padded rows are masked out
+    of the velocity.  The node binds its device when it is built (the card
+    unless ``device="cpu"``) and makes it current in whatever thread runs
+    its callback.  Frames whose processing raises are counted in
+    ``frames_failed`` (the traceback is printed and the node goes on, as
+    :class:`FlowNode`)."""
+
+    def __init__(self, bus: Bus, params: NodeParams | None = None,
+                 max_corners: int = 200, redetect_every: int = 10,
+                 win_size: int = 21, max_level: int = 3, direct: bool = True,
+                 *, device=None):
+        self.device = resolve_device(device)
+        self.bus = bus
+        self.p = params or NodeParams(name="LK", aggregate="median")
+        self.vel = VelocityEstimator(
+            self.p.pixel_to_meter, self.p.aggregate, self.p.smooth_window,
+            self.p.max_speed,
+        )
+        self.max_corners = max_corners
+        self.redetect_every = redetect_every
+        self.win_size = win_size
+        self.max_level = max_level
+        self._prev: tuple[torch.Tensor, float] | None = None
+        self._pts: np.ndarray | None = None
+        self._n_valid = 0
+        self._since_detect = 0
+        self.frames_processed = 0
+        self.frames_failed = 0
+        self._subs = [
+            bus.subscribe("/camera/color/image_raw", self._callback, direct=direct),
+            bus.subscribe("/camera/color/camera_info",
+                          lambda m: self.vel.set_fx(m.fx), direct=direct),
+            bus.subscribe("/camera/depth/median_distance",
+                          lambda m: self.vel.set_depth(m.range), direct=direct),
+        ]
+
+    def stop(self) -> None:
+        for s in self._subs:
+            self.bus.unsubscribe(s)
+        self._subs = []
+
+    def _detect(self, gray: torch.Tensor) -> np.ndarray:
+        # the 8-bit image cv2 would be given: the fp32 gray truncated
+        pts = good_features_to_track(gray.to(torch.uint8), self.max_corners,
+                                     0.01, 8, device=self.device)
+        n = min(len(pts), self.max_corners)
+        H, W = gray.shape
+        out = np.empty((self.max_corners, 2), np.float32)
+        out[:n] = pts[:n]
+        # padding tracks a harmless interior point, masked out of the velocity
+        out[n:] = (W / 2.0, H / 2.0)
+        self._n_valid = n
+        return out
+
+    def _callback(self, msg: ImageMsg):
+        try:
+            with device_scope(self.device):
+                self._process(msg)
+        except Exception:  # per-frame fault boundary, as FlowNode's
+            self.frames_failed += 1
+            traceback.print_exc()
+
+    def _process(self, msg: ImageMsg):
+        frame = msg.data
+        gray = _bgr_to_gray_np(frame) if frame.ndim == 3 else frame.astype(np.float32)
+        gray = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
+        if (self._prev is None or self._pts is None
+                or self._since_detect >= self.redetect_every):
+            self._pts = self._detect(gray)
+            self._since_detect = 0
+            if self._prev is None:
+                self._prev = (gray, msg.header.stamp)
+                return
+        prev, t_prev = self._prev
+        self._prev = (gray, msg.header.stamp)
+        dt = msg.header.stamp - t_prev
+        res = calc_optical_flow_pyr_lk(
+            prev, gray, self._pts, win_size=(self.win_size, self.win_size),
+            max_level=self.max_level, device=self.device)
+        tracked = res.pts.cpu().numpy()
+        ok = res.status.cpu().numpy().astype(bool)
+        ok[self._n_valid:] = False
+        disp = tracked[ok] - self._pts[ok]
+        self._since_detect += 1
+        if len(disp) < 4:
+            self._pts = None  # re-detect on the next frame
+            return
+        agg = np.median if self.p.aggregate == "median" else np.mean
+        vx, vx_smooth = self.vel.update_from_displacement(
+            float(agg(disp[:, 0])), dt)
+        name = self.p.name
+        self.bus.publish(f"/optical_flow/{name}_velocity",
+                         Vector3StampedMsg(msg.header, vx))
+        self.bus.publish(f"/optical_flow/{name}_smooth_velocity",
+                         Vector3StampedMsg(msg.header, vx_smooth))
+        # keep tracking from the new positions
+        new_pts = self._pts.copy()
+        new_pts[ok] = tracked[ok]
+        self._pts = new_pts
+        self.frames_processed += 1
 
 
 # ---------------------------------------------------------------- backends

@@ -525,7 +525,7 @@ def test_exports_are_the_jax_names_less_what_waits():
     roadmap = (pathlib.Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
     missing = sorted(ref - port)
     assert missing == ["AdaptiveParams", "FrameDirectorySource", "JunctionDetectorNode",
-                       "JunctionTracker", "LKVelocityNode", "VideoFileSource",
+                       "JunctionTracker", "VideoFileSource",
                        "make_adaptive_backend"]
     assert all(name in roadmap for name in missing)
     assert all(getattr(trt, name) is not None for name in port)
