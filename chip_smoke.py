@@ -29,13 +29,16 @@ seconds:
    and on, at PWC-Net's level 2 (B=8), on Farneback's 720p planes (B=6), at
    PWC-Net's four warps at B=1 and at LiteFlowNet's and LFN3's B=1 shapes
    (LFN3's flow deformation at C=2, the image warp at C=3, LiteFlowNet's
-   level-2 feature warp at C=64), with flows that put taps out of the image
+   level-2 feature warp at C=64), at NeuFlowLite's 1/8 warp at 640x480
+   (C=64) and NeuFlow-v2's 1/16 and 1/8 warps at 768x432 (C=128), with
+   flows that put taps out of the image
    and a column that straddles the mask threshold; timed beside its bound
    and F.grid_sample at each shape;
 7. K4 local_correlation vs its plain version in the six configurations of
    the model zoo, at the channels and level sizes each model has at
    640x480, B=1 and B=8, and at every correlation PWC-Net (five),
-   LiteFlowNet (five) and LFN3 (six) make at B=1; each launch run twice and
+   LiteFlowNet (five) and LFN3 (six) make at B=1, and NeuFlowLite's (at
+   640x480) and NeuFlow-v2's two (at 768x432, radius 4); each launch run twice and
    the two held bit for bit; timed beside its bound at B=8 and at each B=1
    correlation;
 8. the PWC-Net path at 640x480 on seeded weights (the packaged npz is not
@@ -73,12 +76,27 @@ seconds:
    pairs/s and the device time by part (all-pairs product, pyramid,
    lookup, convolutions, the rest); RAFT-small also as a 200-frame
    FusedModelStream at iters=8, the demo's.  Phases 16-18 launch none of
-   K1-K4 (their wrappers' counters hold it).
+   K1-K4 (their wrappers' counters hold it);
+19. and 20. NeuFlowLite at 640x480 and NeuFlow-v2 at 768x432 (the
+   reference NeuFlow node's size) on seeded weights: K3 and K4 launches
+   per estimate (2 and 2, 9 and 9), the kernel path against the plain path
+   and the card against the CPU (bars relative to the flow's RMS), what
+   TF32 convolutions would give, B=1 latency, B=8 pairs/s, the profile
+   (NeuFlow-v2: device time by part: backbone, attention and matching,
+   refinement, upsampling), a 200-frame FusedModelStream (p50/p99); for
+   NeuFlowLite also the demo --model neuflow at 640x480, 30 fps, 90 frames
+   (every frame processed or dropped, none failed; its velocity error is
+   printed: seeded weights make it no accuracy figure);
+21. bf16 serving: each of the seven families through
+   FusedModelStream(bf16=True) at its phase's size over 100 frames, p50/p99
+   beside the fp32 stream's, the bf16 flow (fp32, finite) against the fp32
+   flow on one pair, and K3/K4 launches equal to the fp32 stream's.
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
 (tests/test_torch_pwcnet.py, test_torch_liteflownet*.py,
-test_torch_raft.py).  Here they
+test_torch_raft.py, test_torch_neuflow*.py, test_torch_bf16_serving.py).
+Here they
 measure the kernels' path against the plain one, the card against the CPU,
 and time.
 
@@ -87,7 +105,7 @@ what a caller waits for, the wrapper's host time included) and device time
 by CUDA-graph replay (``graph_ms``: at the B=1 shapes a kernel is shorter
 than its own Python dispatch).
 
-Phases 4, 5, 8-14 and 16-18 also run their path once under
+Phases 4, 5, 8-14 and 16-20 also run their path once under
 torch.profiler: device busy time, idle share, how much of the idle time
 the device spent waiting for the host to launch its next operation, and
 the stream synchronizations and host-to-device copies made.  ``--trace DIR`` keeps those profiles there
@@ -102,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -181,6 +200,21 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * replays)
+
+
+def estimate_ms(torch, estimate, model, x1, x2, reps: int, warm: int = 5) -> np.ndarray:
+    """ms of each of ``reps`` ``estimate(model, x1, x2)`` calls after
+    ``warm``, CUDA events around each."""
+    out = []
+    for _ in range(warm + reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        estimate(model, x1, x2)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return np.array(out[warm:])
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -614,10 +648,12 @@ def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
 # headline: PWC-Net's level-2 warp at B=8, Farneback's 720p planes (B=6),
 # PWC-Net's four warps at B=1 (levels 5, 4, 3, 2), the stream node's unit,
 # then LFN3's level-3 flow deformation (C=2), LiteFlowNet's level-2 image
-# warp (C=3) and level-2 feature warp (C=64) at B=1
+# warp (C=3) and level-2 feature warp (C=64) at B=1, then NeuFlowLite's
+# 1/8 warp at 640x480 and NeuFlow-v2's 1/16 and 1/8 warps at 768x432 (B=1)
 K3_SHAPES = ((8, 32, 128, 160), (6, 5, 720, 1280), (1, 128, 16, 20),
              (1, 96, 32, 40), (1, 64, 64, 80), (1, 32, 128, 160),
-             (1, 2, 120, 160), (1, 3, 240, 320), (1, 64, 240, 320))
+             (1, 2, 120, 160), (1, 3, 240, 320), (1, 64, 240, 320),
+             (1, 64, 60, 80), (1, 128, 27, 48), (1, 128, 54, 96))
 
 
 def k3_inputs(torch, rng, B, C, H, W, dev):
@@ -936,8 +972,9 @@ PWC_LEVELS_B1 = ((1, 196, 8, 10), (1, 128, 16, 20), (1, 96, 32, 40),
 
 # (what, (max_disp, disp_stride, out_stride), [B, C, H, W]) of every
 # correlation an estimate call makes at 640x480, B=1: PWC-Net's five,
-# LiteFlowNet's five (level 2 after its 1x1 feat conv to 64 channels) and
-# LFN3's six (four cross, two self)
+# LiteFlowNet's five (level 2 after its 1x1 feat conv to 64 channels),
+# LFN3's six (four cross, two self) and NeuFlowLite's one shape (at 1/8);
+# and NeuFlow-v2's two at 768x432 (1/16 and 1/8)
 CORR_B1 = (
     tuple((f"PWC-Net level {6 - i}", (4, 1, 1), s)
           for i, s in enumerate(PWC_LEVELS_B1))
@@ -951,7 +988,10 @@ CORR_B1 = (
        ("LFN3 level 4", (4, 1, 1), (1, 96, 60, 80)),
        ("LFN3 level 3", (4, 1, 1), (1, 64, 120, 160)),
        ("LFN3 self level 4", (6, 2, 1), (1, 96, 60, 80)),
-       ("LFN3 self level 3", (8, 2, 1), (1, 64, 120, 160))))
+       ("LFN3 self level 3", (8, 2, 1), (1, 64, 120, 160)),
+       ("NeuFlowLite level 3", (4, 1, 1), (1, 64, 60, 80)),
+       ("NeuFlow-v2 level 4", (4, 1, 1), (1, 128, 27, 48)),
+       ("NeuFlow-v2 level 3", (4, 1, 1), (1, 128, 54, 96))))
 
 
 def k4_bytes_flops(C, H, W, B, K2, Ho, Wo, same=False) -> tuple[int, int]:
@@ -1110,14 +1150,15 @@ def plain_kernels():
     (for comparing the kernels' path with the plain one on the card)."""
     from unittest import mock
 
-    from opticalflowcontainer_tpu_torch.models import liteflownet, liteflownet3, pwcnet
+    from opticalflowcontainer_tpu_torch.models import (
+        liteflownet, liteflownet3, neuflow, neuflow_v2, pwcnet)
     from opticalflowcontainer_tpu_torch.ops import correlation as k4
     from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(k3, "warp_bilinear",
                                               k3.warp_bilinear_plain))
-        for mod in (pwcnet, liteflownet, liteflownet3):
+        for mod in (pwcnet, liteflownet, liteflownet3, neuflow, neuflow_v2):
             stack.enter_context(mock.patch.object(mod, "local_correlation",
                                                   k4.correlation_plain))
         yield
@@ -1154,18 +1195,7 @@ def net_phase(torch, dev, trace_dir, label, model, cpu_model, estimate,
     print(f"flow |u|,|v| mean {flow.abs().mean((0, 1, 2)).tolist()}, max "
           f"{float(flow.abs().max()):.3f} px")
 
-    def latency(x1, x2, reps, warm=5):
-        """ms of each of ``reps`` estimate calls after ``warm``, CUDA events."""
-        out = []
-        for _ in range(warm + reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            estimate(model, x1, x2)
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end))
-        return np.array(out[warm:])
+    latency = functools.partial(estimate_ms, torch, estimate, model)
 
     mean_bar, max_bar = 1e-3, 5e-2
     tf32 = torch.backends.cudnn.allow_tf32
@@ -1225,8 +1255,6 @@ def net_phase(torch, dev, trace_dir, label, model, cpu_model, estimate,
 
 
 def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
-    import functools
-
     from opticalflowcontainer_tpu_torch.models.pwcnet import estimate
     from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
     from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
@@ -1294,8 +1322,6 @@ def model_stream_phase(torch, dev, trace_dir, H=480, W=640, n=201, dx=1.5,
     """FusedModelStream over LFN3: one uint8 frame up and one scalar down a
     frame, against make_model_backend (the flow field to numpy) and
     VelocityEstimator on the same frames."""
-    import functools
-
     from opticalflowcontainer_tpu_torch.models.liteflownet3 import LiteFlowNet3, estimate
     from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
     from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
@@ -1848,12 +1874,10 @@ def seeded_raft(torch, cls, seed: int, device):
 
 
 @contextlib.contextmanager
-def raft_ranges(torch):
-    """RAFT's all-pairs product, its pyramid (with the packing) and its
-    lookup inside profiler ranges, for the split of the device time."""
+def profiler_ranges(torch, patches):
+    """Each (object, attribute, range name) of ``patches``: the callable
+    run inside a profiler range of that name (a class's ``forward`` too)."""
     from unittest import mock
-
-    from opticalflowcontainer_tpu_torch.models import raft
 
     def ranged(name, fn):
         def wrapper(*args, **kwargs):
@@ -1862,36 +1886,31 @@ def raft_ranges(torch):
         return wrapper
 
     with contextlib.ExitStack() as stack:
-        for attr, name in (("all_pairs_correlation", "raft::allpairs_product"),
-                           ("corr_pyramid", "raft::pyramid"),
-                           ("pack_pyramid", "raft::pyramid"),
-                           ("lookup_packed", "raft::lookup")):
+        for obj, attr, name in patches:
             stack.enter_context(mock.patch.object(
-                raft, attr, ranged(name, getattr(raft, attr))))
+                obj, attr, ranged(name, getattr(obj, attr))))
         yield
 
 
-RAFT_RANGES = ("raft::allpairs_product", "raft::pyramid", "raft::lookup")
-
-
-def raft_split(torch, fn) -> dict | None:
-    """Device ms of one ``fn()`` call (an estimate) by part: the all-pairs
-    product, the pyramid, the lookup, the convolutions (cuDNN's kernels and
-    layout transposes) and the rest; None when the profiler recorded no
-    device time.  A part is the device time of the kernels launched inside
-    its range (the ranges' own spans on the device timeline, idle gaps
-    included, are left out)."""
+def split_by_ranges(torch, fn, patches, parts: dict) -> dict | None:
+    """Device ms of one ``fn()`` call by part: ``parts`` maps a part to the
+    profiler range (of ``patches``, see profiler_ranges) or aten operation
+    whose kernels it sums; "rest" is the busy time left over.  None when the
+    profiler recorded no device time.  A part is the device time of the
+    kernels launched inside its range (the ranges' own spans on the device
+    timeline, idle gaps included, are left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = {name for _, _, name in patches}
     torch.cuda.synchronize()
-    with raft_ranges(torch), profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA]) as prof:
+    with profiler_ranges(torch, patches), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA and e.key not in RAFT_RANGES) / 1e3
+               if e.device_type == DeviceType.CUDA and e.key not in ranges) / 1e3
     if busy <= 0:
         return None
 
@@ -1899,12 +1918,25 @@ def raft_split(torch, fn) -> dict | None:
         return sum(e.device_time_total for e in events
                    if e.key == key and e.device_type == DeviceType.CPU) / 1e3
 
-    split = {"allpairs_product": total("raft::allpairs_product"),
-             "pyramid": total("raft::pyramid"), "lookup": total("raft::lookup"),
-             "convolutions": total("aten::convolution")}
+    split = {part: total(key) for part, key in parts.items()}
     split["rest"] = busy - sum(split.values())
     split["busy"] = busy
     return split
+
+
+def raft_split(torch, fn) -> dict | None:
+    """Device ms of one RAFT estimate by part: the all-pairs product, the
+    pyramid (with the packing), the lookup, the convolutions (cuDNN's
+    kernels and layout transposes) and the rest."""
+    from opticalflowcontainer_tpu_torch.models import raft
+
+    patches = [(raft, "all_pairs_correlation", "raft::allpairs_product"),
+               (raft, "corr_pyramid", "raft::pyramid"),
+               (raft, "pack_pyramid", "raft::pyramid"),
+               (raft, "lookup_packed", "raft::lookup")]
+    return split_by_ranges(torch, fn, patches, {
+        "allpairs_product": "raft::allpairs_product", "pyramid": "raft::pyramid",
+        "lookup": "raft::lookup", "convolutions": "aten::convolution"})
 
 
 def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
@@ -1916,7 +1948,6 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
     give; final_only against the stacked flows; B=1 latency over 50 calls,
     B=8 pairs/s; the device time by part; and for RAFT-small a 200-frame
     FusedModelStream at iters=8, as the demo serves it."""
-    import functools
     from unittest import mock
 
     from opticalflowcontainer_tpu_torch.models import raft
@@ -1939,17 +1970,7 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
     print(f"{label} ({n_params} parameters, seeded) at {W}x{H}, iters={iters}: flow "
           f"RMS {rms:.3f} px, max |.| {float(flow.abs().max()):.3f} px")
 
-    def latency(x1, x2, reps, warm=5):
-        out = []
-        for _ in range(warm + reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            est(model, x1, x2)
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end))
-        return np.array(out[warm:])
+    latency = functools.partial(estimate_ms, torch, est, model)
 
     # Random weights make absolute pixels meaningless, so the bars are
     # relative to the flow's RMS (PERF.md's findings say why these): the card
@@ -2046,6 +2067,330 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
             "one scalar download and at most one frame upload per step")
 
 
+def seeded_neuflow(torch, cls, seed: int, device):
+    """NeuFlowLite or NeuFlow-v2 (``cls``) at the packaged architecture's
+    full width, seeded: every convolution He-normal (std sqrt(2 / fan_in))
+    and every linear layer LeCun-normal (std sqrt(1 / fan_in)) from a seeded
+    torch.Generator, zero biases, LayerNorms at 1 and 0.  NeuFlowLite's
+    matching gate is 0.05, not the reference's initial 0 (which would
+    multiply the global-matching stage by 0): on seeded features the
+    soft-argmax gives a centroid field of ~10 cells RMS at 1/16, which the
+    gate makes a flow of a few px (the whole net's ~10 px RMS at 640x480)."""
+    g = torch.Generator().manual_seed(seed)
+    model = cls()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                std = (2.0 / m.weight[0].numel()) ** 0.5
+            elif isinstance(m, torch.nn.Linear):
+                std = (1.0 / m.weight.shape[1]) ** 0.5
+            else:
+                continue
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g) * std)
+            m.bias.zero_()
+        if hasattr(model, "matching_gate"):
+            model.matching_gate.fill_(0.05)
+    return model.to(device).eval()
+
+
+# K3 and K4 launches per estimate call: NeuFlowLite warps and correlates
+# once in each of its 2 refinement steps, NeuFlow-v2 in each of its 1 + 8
+NEUFLOW_LAUNCHES = {"neuflow_lite": {"warp_bilinear": 2, "local_correlation": 2},
+                    "neuflow_v2": {"warp_bilinear": 9, "local_correlation": 9}}
+
+
+def neuflow_split(torch, fn) -> dict | None:
+    """Device ms of one NeuFlow-v2 estimate by part: the backbone, the
+    attention and matching (cross-attention, global matching, flow
+    propagation), the refinement (its K3 and K4 launches included), the
+    convex upsampling, and the rest (the hidden states' init convs, the
+    resizes)."""
+    from opticalflowcontainer_tpu_torch.models import neuflow_v2 as v2
+
+    patches = [(v2.BackboneV2, "forward", "neuflow_v2::backbone"),
+               (v2.CrossAttention, "forward", "neuflow_v2::attention_matching"),
+               (v2, "global_matching_flow", "neuflow_v2::attention_matching"),
+               (v2.FlowAttention, "forward", "neuflow_v2::attention_matching"),
+               (v2.RefineBlock, "forward", "neuflow_v2::refinement"),
+               (v2.ConvexUpsample, "forward", "neuflow_v2::upsampling")]
+    return split_by_ranges(torch, fn, patches, {
+        "backbone": "neuflow_v2::backbone",
+        "attention_matching": "neuflow_v2::attention_matching",
+        "refinement": "neuflow_v2::refinement",
+        "upsampling": "neuflow_v2::upsampling"})
+
+
+def neuflow_phase(torch, dev, trace_dir, v2: bool, n=201, fps=30.0) -> dict:
+    """Phase 19 (NeuFlowLite at 640x480) or 20 (NeuFlow-v2, ``v2``, at
+    768x432, the reference NeuFlow node's fixed size) on seeded weights: K3
+    and K4 launches per estimate; the kernels' path against the plain path
+    on the card and the card against the CPU at 192x128 (fp32 convolutions,
+    which the NeuFlow nets serve; bars relative to the flow's RMS, as
+    RAFT's); what TF32 convolutions would give; B=1 latency over 50 calls,
+    B=8 pairs/s; one estimate under the profiler (NeuFlow-v2: its device
+    time by part); a 200-frame FusedModelStream (p50/p99, launches, one
+    upload and one download a step); NeuFlowLite also the demo
+    ``--model neuflow`` at 640x480, 30 fps, 90 frames.  Returns the
+    launches by path."""
+    import io
+    from unittest import mock
+
+    from opticalflowcontainer_tpu_torch.models import convert, neuflow, neuflow_v2
+    from opticalflowcontainer_tpu_torch.runtime import demo
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
+
+    mod, cls, label, tag, (H, W), seed = (
+        (neuflow_v2, neuflow_v2.NeuFlowV2, "NeuFlow-v2", "neuflow_v2", (432, 768), 20)
+        if v2 else
+        (neuflow, neuflow.NeuFlowLite, "NeuFlowLite", "neuflow_lite", (480, 640), 19))
+    est = mod.estimate
+    expect = dict(farneback_update=0, blur_solve=0, **NEUFLOW_LAUNCHES[tag])
+    model = seeded_neuflow(torch, cls, seed, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    i1, i2 = image_pairs(torch, H, W, 1, dev)
+    est(model, i1, i2)  # warm-up: library load, cuDNN's timed algorithms
+    torch.cuda.synchronize()
+    reset_counts()
+    flow = est(model, i1, i2)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    print(f"{label} ({n_params} parameters, seeded) one estimate call at {W}x{H} "
+          f"launched {launches} (expected {expect})")
+    require(launches == expect, f"each {label} estimate call runs "
+            f"{expect['warp_bilinear']} warps and {expect['local_correlation']} "
+            f"correlations, and no Farneback kernel")
+    require(tuple(flow.shape) == (1, H, W, 2) and flow.dtype == torch.float32,
+            f"flow {tuple(flow.shape)} {flow.dtype}")
+    require(bool(torch.isfinite(flow).all()), "flow is finite")
+    rms = float(flow.square().mean().sqrt())
+    print(f"flow RMS {rms:.3f} px, |u|,|v| mean {flow.abs().mean((0, 1, 2)).tolist()}, "
+          f"max {float(flow.abs().max()):.3f} px")
+
+    latency = functools.partial(estimate_ms, torch, est, model)
+
+    # bars relative to the flow's RMS, as RAFT's (seeded weights make
+    # absolute pixels meaningless): mean 1e-3, max 5e-2 of it
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kern = est(model, i1, i2)
+        with plain_kernels():
+            plain = est(model, i1, i2)
+        d = (kern - plain).abs()
+        print(f"{W}x{H} kernel path vs plain path on the card: mean|d| "
+              f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e} px on a flow of RMS "
+              f"{rms:.3f} px (bars 1e-3 / 5e-2 of the RMS: fp32 sums in another order)")
+        require(float(d.mean()) <= 1e-3 * rms and float(d.max()) <= 5e-2 * rms,
+                "the kernels' path agrees with the plain path")
+        s1, s2 = image_pairs(torch, 128, 192, 1, "cpu")
+        on_card = est(model, s1, s2).cpu()
+        on_cpu = est(seeded_neuflow(torch, cls, seed, "cpu"), s1, s2)
+        ref = float(on_cpu.square().mean().sqrt())
+        d = (on_card - on_cpu).abs()
+        print(f"192x128 card vs CPU (fp32 convolutions): mean|d| {float(d.mean()):.3e}, "
+              f"max|d| {float(d.max()):.3e} px on a flow of RMS {ref:.3f} px (bars "
+              f"1e-3 / 5e-2 of the RMS)")
+        require(float(d.mean()) <= 1e-3 * ref and float(d.max()) <= 5e-2 * ref,
+                "card agrees with the CPU")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    d = (flow - kern).abs()
+    print(f"{W}x{H} served flow vs fp32 convolutions: mean|d| {float(d.mean()):.3e} px, "
+          f"max {float(d.max()):.3e} px (the model holds fp32 convolutions)")
+    require(float(d.mean()) <= 1e-2 * rms, "the served flow within the bar of fp32")
+    lat = latency(i1, i2, 50)
+    b1, b2 = image_pairs(torch, H, W, 8, dev)
+    torch.cuda.reset_peak_memory_stats()
+    lat8 = latency(b1, b2, 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # what PyTorch's default (TF32, cuDNN's heuristics) would give
+    with mock.patch.object(mod, "fp32_convolutions", contextlib.nullcontext):
+        d = (est(model, i1, i2) - kern).abs()
+        tf32_ms = latency(i1, i2, 50)
+        tf32_8 = latency(b1, b2, 10)
+    print(f"{W}x{H} TF32 convolutions (not served) vs fp32: mean|d| {float(d.mean()):.3e} "
+          f"px ({float(d.mean()) / rms:.3e} of the RMS), max {float(d.max()):.3e} px")
+    print(f"{W}x{H} {label} estimate at B=1, CUDA events over 50 calls: median "
+          f"{np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms (served: fp32 "
+          f"convolutions); with TF32 convolutions median {np.median(tf32_ms):.3f} ms")
+    print(f"{W}x{H} {label} estimate at B=8: median {np.median(lat8):.3f} ms per call, "
+          f"{8e3 / np.median(lat8):.2f} pairs/s, peak memory {peak:.2f} GiB; with TF32 "
+          f"convolutions median {np.median(tf32_8):.3f} ms, "
+          f"{8e3 / np.median(tf32_8):.2f} pairs/s")
+    for batch, x1, x2 in ((1, i1, i2), (8, b1, b2)):
+        profile_path(torch, f"one {label} estimate at B={batch}",
+                     lambda: est(model, x1, x2), trace_dir, f"{tag}_b{batch}")
+        if v2:
+            split = neuflow_split(torch, lambda: est(model, x1, x2))
+            print(f"{label} device time by part, one estimate at B={batch} (profiler "
+                  f"on): " + ("not measured (no device time recorded)" if split is None
+                              else ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())))
+    del b1, b2
+
+    frames = bgr_frames(torch, H, W, n, 1.5, seed=seed + 1, device=dev)
+    stream = FusedModelStream(model, est, device=dev)
+    stream.warmup(frames[0])
+    reset_counts()
+    require(stream.step(frames[0]) is None, "first frame seeds the state")
+    dus, lat = [], []
+    for f in frames[1:]:
+        t0 = time.perf_counter()
+        dus.append(float(stream.step(f)))  # syncs
+        lat.append((time.perf_counter() - t0) * 1e3)
+    stream_counts = kernel_counts()
+    want = {k: v * (n - 1) for k, v in expect.items()}
+    lat = np.array(lat)
+    print(f"{W}x{H} {label} FusedModelStream, {n - 1} uint8 BGR frames (host clock, "
+          f"numpy frame to synced du): p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms, mean {lat.mean():.3f} ms, min {lat.min():.3f} "
+          f"ms, max {lat.max():.3f} ms; du {min(dus):.4f} .. {max(dus):.4f} px; launches "
+          f"{stream_counts} (expected {want})")
+    require(stream_counts == want, "the stream ran both kernels on every frame")
+    require(all(np.isfinite(dus)), "the stream's du is finite")
+
+    def ten_steps():
+        for f in frames[1:11]:
+            float(stream.step(f))
+
+    prof = profile_path(torch, f"ten {label} stream steps", ten_steps, trace_dir,
+                        f"{tag}_stream")
+    require(prof is not None and prof["d2h"] == 10 and prof["h2d"] <= 10,
+            "one scalar download and at most one frame upload per step")
+    by_path = {tag: launches, f"{tag}_stream": stream_counts}
+    if v2:
+        return by_path
+
+    # the demo's neuflow backend, its loader handing over the seeded model
+    # (the run reads no weights file)
+    n_demo = 90
+    argv = ["--model", "neuflow", "--frames", str(n_demo), "--width", str(W),
+            "--height", str(H), "--fps", str(fps)]
+    out = io.StringIO()
+    reset_counts()
+    with mock.patch.object(convert, "load_neuflow_lite_synth", lambda device=None: model), \
+            contextlib.redirect_stdout(out):  # one line a frame: keep the tail
+        r = demo.run(argv)
+    counts = kernel_counts()
+    for line in out.getvalue().strip().splitlines()[-2:]:
+        print(f"demo {' '.join(argv)}: {line}")
+    print(f"  demo_neuflow: processed {r['frames_processed']}, dropped "
+          f"{r['frames_dropped']}, failed {r['frames_failed']} of {n_demo} frames, "
+          f"{r['published']} smoothed velocities, "
+          f"{r['frames_processed'] / r['seconds']:.2f} fps achieved in "
+          f"{r['seconds']:.3f} s, final smoothed velocity {r['final_vx']} m/s, "
+          f"error {r['error_mps']} m/s (seeded weights: not an accuracy figure; "
+          f"the 10 mm/s bar is held with the packaged npz on the CPU, "
+          f"tests/test_torch_neuflow.py); launches {counts}")
+    require(r["ended"] and r["frames_failed"] == 0, "no frame failed, threads ended")
+    require(r["published"] == r["frames_processed"] > 0
+            and r["frames_processed"] + r["frames_dropped"] == n_demo - 1,
+            "one velocity per processed frame; every frame processed or dropped")
+    require(r["final_vx"] is not None and np.isfinite(r["final_vx"]),
+            "the final smoothed velocity is finite")
+    # the warm-up's estimate, then one per processed frame
+    want = {k: v * (r["frames_processed"] + 1) for k, v in expect.items()}
+    require(counts == want, f"the demo launched {want}")
+    by_path["demo_neuflow"] = counts
+    return by_path
+
+
+def bf16_families(torch, dev) -> list:
+    """(label, path tag, seeded model on ``dev``, estimate, (H, W)) of every
+    family at its phase's size and seed; RAFT at the demo's 8 iterations."""
+    from opticalflowcontainer_tpu_torch.models import (
+        liteflownet, liteflownet3, neuflow, neuflow_v2, pwcnet, raft)
+
+    raft8 = functools.partial(raft.estimate, iters=8)
+    return [
+        ("PWC-Net", "pwcnet", lambda: seeded_pwcnet(torch, 7, dev), pwcnet.estimate,
+         (480, 640)),
+        ("LiteFlowNet", "liteflownet",
+         lambda: seeded_liteflownet(torch, liteflownet.LiteFlowNet, 11, dev),
+         liteflownet.estimate, (480, 640)),
+        ("LFN3", "liteflownet3",
+         lambda: seeded_liteflownet(torch, liteflownet3.LiteFlowNet3, 11, dev),
+         liteflownet3.estimate, (480, 640)),
+        ("RAFT-small", "raft_small", lambda: seeded_raft(torch, raft.RAFTSmall, 17, dev),
+         raft8, (480, 640)),
+        ("RAFT", "raft", lambda: seeded_raft(torch, raft.RAFT, 17, dev), raft8,
+         (480, 640)),
+        ("NeuFlowLite", "neuflow_lite",
+         lambda: seeded_neuflow(torch, neuflow.NeuFlowLite, 19, dev), neuflow.estimate,
+         (480, 640)),
+        ("NeuFlow-v2", "neuflow_v2",
+         lambda: seeded_neuflow(torch, neuflow_v2.NeuFlowV2, 20, dev),
+         neuflow_v2.estimate, (432, 768)),
+    ]
+
+
+def bf16_phase(torch, dev, n=101) -> dict:
+    """Phase 21: each family served in bfloat16 through
+    FusedModelStream(bf16=True) at its phase's size over 100 uint8 BGR
+    frames beside an fp32 stream on the same frames, the two stepped in
+    turns frame by frame (p50/p99 of each); K3 and K4 launches equal to the
+    fp32 stream's (the kernels, not their plain versions, serve bf16); du
+    fp32 and finite; ten steps of each under the profiler; the bf16 flow
+    (fp32, finite) against the fp32 flow on one pair, mean and max change.
+    Seeded weights make the change a precision figure, not an accuracy one
+    (the bars on trained weights are the CPU tests').  Returns the bf16
+    streams' launches by path (each step's launches read around it)."""
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
+
+    def ten_steps(s, frames):
+        for f in frames:
+            float(s.step(f))
+
+    by_path = {}
+    for label, tag, build, est, (H, W) in bf16_families(torch, dev):
+        model = build()
+        frames = bgr_frames(torch, H, W, n, 1.5, seed=21, device=dev)
+        streams = {name: FusedModelStream(model, est, bf16=name == "bf16", device=dev)
+                   for name in ("fp32", "bf16")}
+        lat = {name: [] for name in streams}
+        counts = {name: dict.fromkeys(kernel_counts(), 0) for name in streams}
+        for s in streams.values():
+            s.warmup(frames[0])
+            require(s.step(frames[0]) is None, "first frame seeds the state")
+        reset_counts()
+        for f in frames[1:]:
+            for name, s in streams.items():
+                before = kernel_counts()
+                t0 = time.perf_counter()
+                du = s.step(f)
+                val = float(du)  # syncs
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+                after = kernel_counts()
+                for k in after:
+                    counts[name][k] += after[k] - before[k]
+                require(du.dtype == torch.float32 and np.isfinite(val),
+                        f"{label}: the {name} stream's du is fp32 and finite")
+        for name, s in streams.items():
+            profile_path(torch, f"ten {label} {name} stream steps",
+                         lambda: ten_steps(s, frames[1:11]), None, f"{tag}_{name}")
+        bmodel = streams["bf16"].model
+        require(all(p.dtype == torch.bfloat16 for p in bmodel.parameters()),
+                f"{label}: the bf16 stream's parameters are bf16")
+        i1, i2 = image_pairs(torch, H, W, 1, dev)
+        f32, f16 = est(model, i1, i2), est(bmodel, i1, i2)
+        require(f16.dtype == torch.float32 and bool(torch.isfinite(f16).all()),
+                f"{label}: the bf16 flow is fp32 and finite")
+        d = (f16 - f32).abs()
+        rms = float(f32.square().mean().sqrt())
+        p50 = {k: np.percentile(v, 50) for k, v in lat.items()}
+        p99 = {k: np.percentile(v, 99) for k, v in lat.items()}
+        print(f"bf16 {label} {W}x{H}, {n - 1} frames in turns with fp32: p50 "
+              f"{p50['bf16']:.3f} ms, p99 {p99['bf16']:.3f} ms (fp32 stream p50 "
+              f"{p50['fp32']:.3f}, p99 {p99['fp32']:.3f} ms); flow vs fp32 on one pair: "
+              f"mean|d| {float(d.mean()):.4f} px, max {float(d.max()):.4f} px on a flow "
+              f"of RMS {rms:.3f} px; launches {counts['bf16']} (fp32 stream "
+              f"{counts['fp32']})")
+        require(counts["bf16"] == counts["fp32"], f"{label}: the bf16 stream "
+                f"launched K3 and K4 as the fp32 stream did")
+        by_path[f"bf16_{tag}_stream"] = counts["bf16"]
+        del model, bmodel, streams
+    return by_path
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2113,6 +2458,12 @@ def main() -> int:
         raft_phase(torch, dev, args.trace, large=False)
     with phase("18 RAFT 640x480"):
         raft_phase(torch, dev, args.trace, large=True)
+    with phase("19 NeuFlowLite 640x480 (estimate, FusedModelStream, demo)"):
+        by_path.update(neuflow_phase(torch, dev, args.trace, v2=False))
+    with phase("20 NeuFlow-v2 768x432 (estimate, FusedModelStream)"):
+        by_path.update(neuflow_phase(torch, dev, args.trace, v2=True))
+    with phase("21 bf16 serving, seven families (FusedModelStream(bf16=True))"):
+        by_path.update(bf16_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

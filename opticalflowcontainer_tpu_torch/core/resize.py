@@ -49,14 +49,16 @@ def _resize_axis(x: torch.Tensor, dim: int, dst: int,
     b = x.index_select(dim, hi)
     shape = [1] * x.dim()
     shape[dim] = dst
-    w1 = w1.reshape(shape)
+    # the weights in the image's dtype, as the reference (bf16 stays bf16)
+    w1 = w1.reshape(shape).to(x.dtype)
     return a * (1 - w1) + b * w1
 
 
 def resize_bilinear(img: torch.Tensor, size: tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
     """Resize the trailing two dims of a float [..., H, W] tensor to
-    ``size = (H', W')``, half-pixel centres unless ``align_corners``."""
+    ``size = (H', W')``, half-pixel centres unless ``align_corners``, in
+    the tensor's dtype."""
     out = _resize_axis(img, img.dim() - 2, size[0], align_corners)
     return _resize_axis(out, img.dim() - 1, size[1], align_corners)
 

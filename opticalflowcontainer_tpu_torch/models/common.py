@@ -13,6 +13,11 @@ torch-parity notes that converted weights depend on:
   and padding on that axis only (LiteFlowNet's separable ``dist_v`` /
   ``dist_h``); its keys have no ``Conv_0`` level.
 
+Serving dtype: a model serves in its parameters' dtype (float32, or
+bfloat16 after :func:`cast_params`), and :func:`estimate_resized` hands it
+frames in that dtype.  The flow stays fp32 in every family; K3 and K4 take
+fp32 only and are reached through :func:`in_fp32`.
+
 Layout: NCHW activations, torch's OIHW / IOHW weights.
 """
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.resize import resize_bilinear
+from ..ops.unfold import unfold
 
 
 def leaky(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -78,7 +84,8 @@ def fp32_convolutions():
     ``torch.backends.cudnn.benchmark`` and ``allow_tf32``: blocks entered
     from several threads at once are counted, the first saves the settings
     and the last restores them, and convolutions that other threads run
-    meanwhile get the same settings."""
+    meanwhile get the same settings.  TF32 concerns fp32 only: a bf16
+    model's convolutions stay bf16, their algorithms chosen by timing."""
     global _fp32_depth, _fp32_saved
     cudnn = torch.backends.cudnn
     with _fp32_lock:
@@ -95,14 +102,45 @@ def fp32_convolutions():
                 cudnn.benchmark, cudnn.allow_tf32 = _fp32_saved
 
 
+def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``module``'s parameters and floating buffers to ``dtype`` for
+    reduced-precision serving (reference ``models/common.py`` ``cast_params``:
+    bfloat16 halves the weights' and activations' bytes and runs the
+    convolutions on the tensor cores).  In place, as ``Module.to``; returns
+    ``module``."""
+    return module.to(dtype)
+
+
+def in_fp32(kernel, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """``kernel(x, *args, **kwargs)`` on fp32 copies of ``x`` and of the
+    tensors in ``args``, its result cast back to ``x``'s dtype (the serving
+    dtype).  K3 and K4 take fp32 only, so a bf16 model reaches its kernels
+    through this; on fp32 tensors the casts are no-ops."""
+    args = [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+    return kernel(x.float(), *args, **kwargs).to(x.dtype)
+
+
+def upsample_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The learned convex-combination 8x upsampling of RAFT and NeuFlow-v2,
+    in the reference's layout: ``mask`` [B, 576, Hc, Wc] channel a*72 + b*9
+    + k weighs 3x3 neighbour k (dy*3 + dx) of the coarse ``flow`` [B, 2,
+    Hc, Wc] (x 8) for output pixel (8h + a, 8w + b), the weights a softmax
+    over k in fp32.  Returns the flow [B, 2, 8Hc, 8Wc] in fp32."""
+    B, _, Hc, Wc = flow.shape
+    mask = torch.softmax(mask.float().reshape(B, 8, 8, 9, Hc, Wc), dim=3)
+    patches = unfold(flow.float() * 8.0, 3)  # [B, 2, 9, Hc, Wc]
+    up = (mask[:, None] * patches[:, :, None, None]).sum(4)  # [B, 2, 8, 8, Hc, Wc]
+    return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, 8 * Hc, 8 * Wc)
+
+
 def _pad_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
-def _to_nchw(img, device: torch.device) -> torch.Tensor:
+def _to_nchw(img, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     x = torch.as_tensor(np.ascontiguousarray(img) if isinstance(img, np.ndarray)
                         else img)
-    return x.to(device, torch.float32).permute(0, 3, 1, 2)
+    return x.to(device, dtype).permute(0, 3, 1, 2)
 
 
 def estimate_resized(model: nn.Module, img1, img2, multiple: int,
@@ -112,11 +150,13 @@ def estimate_resized(model: nn.Module, img1, img2, multiple: int,
     multiples of ``multiple``, run through ``model`` (with
     ``forward_kwargs``), and its flow (at any
     fraction of the input's size) is resized back to H x W with u and v
-    rescaled by W/Wp and H/Hp.  Returns the flow [(B,) H, W, 2] on the
+    rescaled by W/Wp and H/Hp.  The frames go in the model's serving dtype
+    (its parameters'); the flow comes back fp32 [(B,) H, W, 2] on the
     model's device.  Callers run it under ``torch.inference_mode()``."""
-    device = next(model.parameters()).device
+    param = next(model.parameters())
     batched = np.ndim(img1) == 4
-    x1, x2 = (_to_nchw(i if batched else i[None], device) for i in (img1, img2))
+    x1, x2 = (_to_nchw(i if batched else i[None], param.device, param.dtype)
+              for i in (img1, img2))
     H, W = x1.shape[-2:]
     Hp, Wp = _pad_to(H, multiple), _pad_to(W, multiple)
     flow = model(resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp)),

@@ -1,7 +1,7 @@
 """Carry the reference's flax weights (flat npz, ``a/b/c`` keys) into the
 port's modules (reference ``models/common.py`` ``load_flat_npz`` and
 ``models/raft.py`` ``_load_weights_npz``): PWC-Net, LiteFlowNet,
-LiteFlowNet3, RAFT-small and RAFT (large).
+LiteFlowNet3, RAFT-small, RAFT (large), NeuFlowLite and NeuFlow-v2.
 
 Names map one to one: the module at ``decoder2.dense0`` takes the flax
 parameters under ``decoder2/dense0``.  A :class:`~.common.Conv` wraps a
@@ -9,7 +9,11 @@ flax ``nn.Conv`` (keys ``<path>/Conv_0/kernel`` HWIO -> OIHW); an
 :class:`~.common.AxisConv` is a bare ``nn.Conv`` (keys ``<path>/kernel``);
 a :class:`~.common.Deconv` stores the flipped HWIO kernel of the equivalent
 input-dilated, possibly grouped, conv (``<path>/kernel``), the inverse of
-the reference's ``convert_torch_deconv``.
+the reference's ``convert_torch_deconv``.  An ``nn.Linear`` is a flax
+``Dense`` (``<path>/kernel`` [in, out] -> weight [out, in], ``bias``), an
+``nn.LayerNorm`` a flax ``LayerNorm`` (``scale`` -> weight, ``bias``), and a
+module's own ``nn.Parameter`` a bare flax ``self.param`` (``<path>/<name>``,
+NeuFlowLite's ``match_temp`` and ``matching_gate``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ from ..core.device import resolve_device
 from .common import AxisConv, Conv, Deconv
 from .liteflownet import LiteFlowNet
 from .liteflownet3 import LiteFlowNet3
+from .neuflow import NeuFlowLite
+from .neuflow_v2 import NeuFlowV2
 from .pwcnet import PWCNet
 from .raft import RAFT, RAFTSmall
 
@@ -56,18 +62,26 @@ def deconv_weight(kernel: np.ndarray, groups: int = 1) -> np.ndarray:
     return k[:, :, ::-1, ::-1]
 
 
-def _flax_prefix(name: str, module: nn.Module) -> tuple[list[str], object] | None:
-    """The flax key path of a module's parameters (empty for the root) and
-    the map of its kernel, or None for a module without parameters of its
-    own."""
+def _flax_key(name: str, module: nn.Module, pname: str) -> tuple[str, object]:
+    """The flax key of parameter ``pname`` of the module at ``name`` (empty
+    for the root) and the map of its array to the parameter's layout."""
     path = name.split(".") if name else []
     if isinstance(module, Deconv):
-        return path, functools.partial(deconv_weight, groups=module.groups)
-    if isinstance(module, AxisConv):
-        return path, conv_weight
-    if isinstance(module, Conv):
-        return path + ["Conv_0"], conv_weight
-    return None
+        prefix, weight_map = path, functools.partial(deconv_weight,
+                                                     groups=module.groups)
+    elif isinstance(module, AxisConv):
+        prefix, weight_map = path, conv_weight
+    elif isinstance(module, Conv):
+        prefix, weight_map = path + ["Conv_0"], conv_weight
+    elif isinstance(module, nn.Linear):
+        prefix, weight_map = path, np.transpose
+    elif isinstance(module, nn.LayerNorm):
+        return "/".join(path + ["scale" if pname == "weight" else pname]), None
+    else:
+        return "/".join(path + [pname]), None
+    if pname == "weight":
+        return "/".join(prefix + ["kernel"]), weight_map
+    return "/".join(prefix + [pname]), None
 
 
 def flax_to_torch_state_dict(flat: dict[str, np.ndarray],
@@ -79,16 +93,12 @@ def flax_to_torch_state_dict(flat: dict[str, np.ndarray],
     out: dict[str, torch.Tensor] = {}
     used: set[str] = set()
     for name, module in model.named_modules():
-        found = _flax_prefix(name, module)
-        if found is None:
-            continue
-        prefix, weight_map = found
         for pname, param in module.named_parameters(recurse=False):
-            key = "/".join(prefix + ["kernel" if pname == "weight" else pname])
+            key, weight_map = _flax_key(name, module, pname)
             if key not in flat:
                 raise KeyError(f"{name}.{pname}: no key {key!r} in the npz")
             arr = flat[key]
-            if pname == "weight":
+            if weight_map is not None:
                 arr = weight_map(arr)
             if arr.shape != tuple(param.shape):
                 raise ValueError(f"{name}.{pname}: npz {key!r} gives shape "
@@ -143,3 +153,15 @@ def load_raft_synth(device=None) -> RAFT | None:
     """:class:`RAFT` (large) with the packaged ``raft_large_synth.npz``, as
     :func:`load_pwcnet_synth`."""
     return _load_synth("raft_large_synth.npz", RAFT(), device)
+
+
+def load_neuflow_lite_synth(device=None) -> NeuFlowLite | None:
+    """:class:`NeuFlowLite` with the packaged ``neuflow_lite_synth.npz``,
+    as :func:`load_pwcnet_synth`."""
+    return _load_synth("neuflow_lite_synth.npz", NeuFlowLite(), device)
+
+
+def load_neuflow_v2_synth(device=None) -> NeuFlowV2 | None:
+    """:class:`NeuFlowV2` with the packaged ``neuflow_v2_synth.npz``, as
+    :func:`load_pwcnet_synth`."""
+    return _load_synth("neuflow_v2_synth.npz", NeuFlowV2(), device)

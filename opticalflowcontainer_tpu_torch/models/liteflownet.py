@@ -12,9 +12,11 @@ A 6-level trunk (:class:`Features`: 32 channels at 7x7, then 32 / 64 / 96 /
   k x k neighbourhood, the new flow their normalized weighted sum
   (``ops/unfold.py``).
 
-Warps are the align-corners pixel warp.  The net's output is the level-2
-(half-resolution) flow x 20; :func:`estimate` implements the resize-to-32 /
-resize-back / rescale contract.  Module and parameter names follow the
+Warps are the align-corners pixel warp.  A model cast to bfloat16 serves
+in bf16 with the flow kept fp32 (cast to bf16 where a convolution reads
+it), K3 and K4 through :func:`~.common.in_fp32`.  The net's output is the
+level-2 (half-resolution) flow x 20; :func:`estimate` implements the
+resize-to-32 / resize-back / rescale contract.  Module and parameter names follow the
 reference's flax names, which ``models/convert.py`` relies on.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ..core.resize import resize_bilinear
 from ..core.warp import warp_align_corners
 from ..ops.correlation import local_correlation
 from ..ops.unfold import neighbourhood_sum
-from .common import AxisConv, Conv, Deconv, estimate_resized, leaky
+from .common import AxisConv, Conv, Deconv, estimate_resized, in_fp32, leaky
 
 # per-level constants, indexed by pyramid level (2..6)
 _FLOW_SCALE = {2: 10.0, 3: 5.0, 4: 2.5, 5: 1.25, 6: 0.625}
@@ -90,18 +92,18 @@ class Matching(nn.Module):
             feat1 = leaky(self.feat(feat1))
             feat2 = leaky(self.feat(feat2))
         if flow is not None:
-            flow = self.upflow(flow)
-            feat2 = warp_align_corners(feat2, flow * _FLOW_SCALE[lvl])
+            flow = self.upflow(flow.to(feat1.dtype)).float()
+            feat2 = in_fp32(warp_align_corners, feat2, flow * _FLOW_SCALE[lvl])
         if lvl >= 4:
-            corr = leaky(local_correlation(feat1, feat2, 3))
+            corr = leaky(in_fp32(local_correlation, feat1, feat2, 3))
         else:
             # fine levels: strided correlation, learned 49-group upsample
-            corr = leaky(local_correlation(feat1, feat2, 6, 2, 2))
+            corr = leaky(in_fp32(local_correlation, feat1, feat2, 6, 2, 2))
             corr = self.upcorr(corr)[..., :feat1.shape[2], :feat1.shape[3]]
         x = leaky(self.main0(corr))
         x = leaky(self.main1(x))
         x = leaky(self.main2(x))
-        res = self.head(x)
+        res = self.head(x).float()
         return res if flow is None else flow + res
 
 
@@ -123,12 +125,12 @@ class Subpixel(nn.Module):
         if lvl == 2:
             feat1 = leaky(self.feat(feat1))
             feat2 = leaky(self.feat(feat2))
-        warped = warp_align_corners(feat2, flow * _FLOW_SCALE[lvl])
-        x = torch.cat([feat1, warped, flow], 1)
+        warped = in_fp32(warp_align_corners, feat2, flow * _FLOW_SCALE[lvl])
+        x = torch.cat([feat1, warped, flow.to(feat1.dtype)], 1)
         x = leaky(self.main0(x))
         x = leaky(self.main1(x))
         x = leaky(self.main2(x))
-        return flow + self.head(x)
+        return flow + self.head(x).float()
 
 
 class Regularization(nn.Module):
@@ -160,20 +162,22 @@ class Regularization(nn.Module):
     def features(self, img1, img2, feat1, flow) -> torch.Tensor:
         """The output of the last ``main`` conv, which the distance (and in
         LFN3 the confidence) heads read."""
-        warped = self.warp(img2, flow * _FLOW_SCALE[self.level])
+        warped = in_fp32(self.warp, img2, flow * _FLOW_SCALE[self.level])
         diff = ((img1 - warped) ** 2).sum(1, keepdim=True).sqrt()
         if self.level < 5:
             feat1 = leaky(self.feat(feat1))
         # the flow's mean over each image's pixels, never over the batch
-        x = torch.cat([diff, flow - flow.mean((2, 3), keepdim=True), feat1], 1)
+        centred = (flow - flow.mean((2, 3), keepdim=True)).to(feat1.dtype)
+        x = torch.cat([diff, centred, feat1], 1)
         for i in range(6):
             x = leaky(getattr(self, f"main{i}")(x))
         return x
 
     def smooth(self, x, flow) -> torch.Tensor:
-        """The new flow from the ``main`` features ``x``: softmax weights of
-        -dist^2 over the k x k taps, through ``scale_x`` / ``scale_y`` (bias
-        added before the normalization, as the reference's 1x1 conv)."""
+        """The new flow (fp32) from the ``main`` features ``x``: softmax
+        weights of -dist^2 over the k x k taps, through ``scale_x`` /
+        ``scale_y`` (bias added before the normalization, as the reference's
+        1x1 conv)."""
         if self.level >= 5:
             dist = self.dist(x)
         else:
@@ -184,7 +188,7 @@ class Regularization(nn.Module):
         taps = torch.cat([self.scale_x.weight.reshape(1, -1),
                           self.scale_y.weight.reshape(1, -1)])
         bias = torch.cat([self.scale_x.bias, self.scale_y.bias])
-        return neighbourhood_sum(flow, dist, taps, bias) * divisor
+        return (neighbourhood_sum(flow, dist, taps, bias) * divisor).float()
 
     def forward(self, img1, img2, feat1, flow):
         return self.smooth(self.features(img1, img2, feat1, flow), flow)

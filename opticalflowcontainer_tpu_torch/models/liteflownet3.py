@@ -14,6 +14,9 @@ per level, over levels 6..3 only, with what defines LFN3:
 - the half-pixel warp convention and a per-image mean subtracted from each
   frame.
 
+bf16 serving as LiteFlowNet's: the flow fp32, K3 and K4 through
+:func:`~.common.in_fp32`.
+
 The net's output is the level-3 (quarter-resolution) flow x 20;
 :func:`estimate` implements the resize-to-32 / resize-back / rescale
 contract.
@@ -25,7 +28,7 @@ from torch import nn
 
 from ..core.warp import warp_half_pixel
 from ..ops.correlation import local_correlation
-from .common import Conv, Deconv, estimate_resized, leaky
+from .common import Conv, Deconv, estimate_resized, in_fp32, leaky
 from .liteflownet import _FLOW_SCALE, _HEAD_K, FEATURE_CH, Features, image_pyramid
 from .liteflownet import Regularization as _Regularization
 
@@ -66,19 +69,19 @@ class Matching(nn.Module):
         lvl = self.level
         if lvl <= 4:
             conf = self.upconf(conf)
-            auto = leaky(local_correlation(feat1, feat1, _AUTO_DISP[lvl], 2))
+            auto = leaky(in_fp32(local_correlation, feat1, feat1, _AUTO_DISP[lvl], 2))
             x = leaky(self.conf0(torch.cat([auto, conf], 1)))
             x = leaky(self.conf1(x))
             cf = leaky(self.conf2(x))
             conf = torch.sigmoid(self.conf_head(cf))
             disp = self.disp_head(cf)
         if flow is not None:
-            flow = self.upflow(flow)
+            flow = self.upflow(flow.to(feat1.dtype)).float()
             if lvl <= 4:
                 # flow-field deformation: warp the flow field by the disp map
                 flow = warp_half_pixel(flow, disp)
-            feat2 = warp_half_pixel(feat2, flow * _FLOW_SCALE[lvl])
-        corr = leaky(local_correlation(feat1, feat2, 4))
+            feat2 = in_fp32(warp_half_pixel, feat2, flow * _FLOW_SCALE[lvl])
+        corr = leaky(in_fp32(local_correlation, feat1, feat2, 4))
         if lvl <= 4:
             cfeat = leaky(self.corr0(torch.cat([feat1, corr, conf], 1)))
             cfeat = leaky(self.corr1(cfeat))
@@ -88,7 +91,7 @@ class Matching(nn.Module):
         x = corr
         for i in range(len(_MAIN_CH)):
             x = leaky(getattr(self, f"main{i}")(x))
-        res = self.head(x)
+        res = self.head(x).float()
         return (res if flow is None else flow + res), conf
 
 
@@ -103,11 +106,11 @@ class Subpixel(nn.Module):
         self.head = Conv(32, 2, kernel=_HEAD_K[level])
 
     def forward(self, feat1, feat2, flow):
-        warped = warp_half_pixel(feat2, flow * _FLOW_SCALE[self.level])
-        x = torch.cat([feat1, warped, flow], 1)
+        warped = in_fp32(warp_half_pixel, feat2, flow * _FLOW_SCALE[self.level])
+        x = torch.cat([feat1, warped, flow.to(feat1.dtype)], 1)
         for i in range(len(_MAIN_CH)):
             x = leaky(getattr(self, f"main{i}")(x))
-        return flow + self.head(x)
+        return flow + self.head(x).float()
 
 
 class Regularization(_Regularization):

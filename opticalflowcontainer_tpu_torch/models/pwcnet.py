@@ -4,7 +4,9 @@ A 6-level feature extractor (16/32/64/96/128/196 channels), coarse-to-fine
 DenseNet-style decoders at levels 6..2 (81-channel local correlation, K4;
 masked backwarp, K3; 4x4/s2 upflow and upfeat deconvs; per-level flow
 scale), and a dilated context refiner (1, 2, 4, 8, 16, 1) added to the
-level-2 flow, all scaled by 20.  The net's output is at 1/4 of its input;
+level-2 flow, all scaled by 20.  A model cast to bfloat16 serves in bf16,
+K3 and K4 through :func:`~.common.in_fp32`; its output flow is fp32, as
+the reference's.  The net's output is at 1/4 of its input;
 :func:`estimate` implements the resize-to-64 / resize-back / rescale
 contract.  Module and parameter names follow the reference's flax names,
 which ``models/convert.py`` relies on.
@@ -16,7 +18,7 @@ from torch import nn
 
 from ..core.warp import warp_with_mask
 from ..ops.correlation import local_correlation
-from .common import Conv, Deconv, estimate_resized, leaky
+from .common import Conv, Deconv, estimate_resized, in_fp32, leaky
 
 _EXTRACTOR_CH = (16, 32, 64, 96, 128, 196)
 _DENSE_CH = (128, 128, 96, 64, 32)
@@ -78,13 +80,13 @@ class Decoder(nn.Module):
 
     def forward(self, feat1, feat2, prev):
         if prev is None:
-            feat = leaky(local_correlation(feat1, feat2, MAX_DISP))
+            feat = leaky(in_fp32(local_correlation, feat1, feat2, MAX_DISP))
         else:
             prev_flow, prev_feat = prev
             flow_up = self.upflow(prev_flow)
             feat_up = self.upfeat(prev_feat)
-            warped = warp_with_mask(feat2, flow_up * _FLOW_SCALE[self.level])
-            corr = leaky(local_correlation(feat1, warped, MAX_DISP))
+            warped = in_fp32(warp_with_mask, feat2, flow_up * _FLOW_SCALE[self.level])
+            corr = leaky(in_fp32(local_correlation, feat1, warped, MAX_DISP))
             feat = torch.cat([corr, feat1, flow_up, feat_up], 1)
         for i in range(len(_DENSE_CH)):
             dense = getattr(self, f"dense{i}")
@@ -127,7 +129,7 @@ class PWCNet(nn.Module):
             f = feats[level - 1]
             prev = getattr(self, f"decoder{level}")(f[:B], f[B:], prev)
         flow, feat = prev
-        return (flow + self.refiner(feat)) * 20.0
+        return (flow.float() + self.refiner(feat).float()) * 20.0
 
 
 @torch.inference_mode()

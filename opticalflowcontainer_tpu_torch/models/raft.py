@@ -13,11 +13,14 @@ The volume is one batched product and the lookup one gather a step
 (``ops/allpairs.py``); no Pallas kernel is on this path in the reference,
 so none of the port's CUDA kernels is either.  InstanceNorm statistics are
 fp32 and per image (both frames run the feature encoder as one batch of
-2B); the flow stays fp32.  The convolutions run in fp32 on the card too,
-their algorithms chosen by timing (:func:`~.common.fp32_convolutions`
-around the forward): on an H100, TF32 convolutions moved the 12-step flow
-of seeded weights by 2-3% of its RMS (PERF.md, "Findings"), where PWC-Net
-and the LiteFlowNets stay within their bars with TF32.  Module names follow
+2B); the flow, the volume and its lookup stay fp32.  A model served in
+fp32 runs its convolutions in fp32 on the card too, their algorithms
+chosen by timing (:func:`~.common.fp32_convolutions` around the forward):
+on an H100, TF32 convolutions moved the 12-step flow of seeded weights by
+2-3% of its RMS (PERF.md, "Findings"), where PWC-Net and the LiteFlowNets
+stay within their bars with TF32.  A model cast to bfloat16
+(:func:`~.common.cast_params`) runs its convolutions in bf16; the guard
+then only chooses their algorithms by timing.  Module names follow
 the reference's flax names, which ``models/convert.py`` relies on.
 :func:`estimate` implements the resize-to-a-multiple-of-8 contract.
 """
@@ -29,8 +32,7 @@ from torch import nn
 
 from ..core.resize import resize_bilinear
 from ..ops.allpairs import all_pairs_correlation, corr_pyramid, lookup_packed, pack_pyramid
-from ..ops.unfold import unfold
-from .common import AxisConv, Conv, estimate_resized, fp32_convolutions
+from .common import AxisConv, Conv, estimate_resized, fp32_convolutions, upsample_convex
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -142,6 +144,7 @@ class SmallMotionEncoder(nn.Module):
         self.conv = Conv(96 + 32, 80)
 
     def forward(self, flow, corr):
+        flow = flow.to(corr.dtype)
         c = F.relu(self.convc1(corr))
         f = F.relu(self.convf2(F.relu(self.convf1(flow))))
         out = F.relu(self.conv(torch.cat([c, f], 1)))
@@ -158,6 +161,7 @@ class MotionEncoder(nn.Module):
         self.conv = Conv(192 + 64, 126)
 
     def forward(self, flow, corr):
+        flow = flow.to(corr.dtype)
         c = F.relu(self.convc2(F.relu(self.convc1(corr))))
         f = F.relu(self.convf2(F.relu(self.convf1(flow))))
         out = F.relu(self.conv(torch.cat([c, f], 1)))
@@ -209,18 +213,8 @@ class _RAFTBase(nn.Module):
             # half-pixel bilinear x8, displacements x8
             H, W = flow.shape[-2:]
             return resize_bilinear(flow, (8 * H, 8 * W)) * 8.0
-        return self._upsample_convex(flow, h)
-
-    def _upsample_convex(self, flow, h):
-        """The learned convex-combination 8x upsampling, in the reference's
-        layout: mask channel a*72 + b*9 + k weighs 3x3 neighbour k (dy*3 +
-        dx) of the coarse flow for output pixel (8h + a, 8w + b)."""
-        B, _, Hc, Wc = flow.shape
-        mask = self.mask2(F.relu(self.mask1(h))) * 0.25
-        mask = torch.softmax(mask.float().reshape(B, 8, 8, 9, Hc, Wc), dim=3)
-        patches = unfold(flow * 8.0, 3)  # [B, 2, 9, Hc, Wc]
-        up = (mask[:, None] * patches[:, :, None, None]).sum(4)  # [B, 2, 8, 8, Hc, Wc]
-        return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, 8 * Hc, 8 * Wc)
+        # the learned convex combination, its mask scaled by 0.25
+        return upsample_convex(flow, self.mask2(F.relu(self.mask1(h))) * 0.25)
 
     def forward(self, img1, img2, iters: int | None = None,
                 final_only: bool = False):

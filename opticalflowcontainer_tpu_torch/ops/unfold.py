@@ -1,7 +1,8 @@
 """Neighbourhoods of each pixel: the distance-weighted neighbourhood sum of
 LiteFlowNet's and LFN3's Regularization (reference ``ops/unfold.py``
 ``unfold`` and ``models/liteflownet.py:124-130``), and the k x k patch stack
-itself (:func:`unfold`), which RAFT's convex upsampler takes.
+itself (:func:`unfold`), which the convex upsampler of RAFT and NeuFlow-v2
+takes.
 
 The reference unfolds the flow into its k x k neighbourhoods ([H, W, k*k,
 2]), multiplies by the k*k distance weights and reduces with a 1x1 conv

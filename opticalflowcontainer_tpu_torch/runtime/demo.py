@@ -1,9 +1,9 @@
 """End-to-end runtime demo: synthetic camera -> flow node (Farneback, or
-RAFT-small / RAFT on the packaged weights) -> velocity topics, on the card
-(``--cpu`` for the CPU):
+NeuFlowLite / RAFT-small / RAFT on the packaged weights) -> velocity
+topics, on the card (``--cpu`` for the CPU):
 
     python -m opticalflowcontainer_tpu_torch.runtime.demo [--fused] [--cpu]
-        [--model farneback|raft|raft_large]
+        [--model farneback|neuflow|raft|raft_large] [--bf16]
 
 The synthetic scene translates at a known metric velocity, so the printed
 velocities should converge to the ground truth: a self-checking run of the
@@ -35,12 +35,18 @@ def run(argv=None) -> dict:
                          "on the device, one scalar to the host per frame "
                          "(runtime.fused)")
     ap.add_argument("--model", default="farneback",
-                    choices=("farneback", "raft", "raft_large"),
-                    help="flow backend; the learned models use the packaged "
-                         "weights and the fused model path (8 iterations). "
-                         "The reference's neuflow backend and --bf16 serving "
-                         "come with NeuFlow's port")
+                    choices=("farneback", "neuflow", "raft", "raft_large"),
+                    help="flow backend; the learned models (neuflow: "
+                         "NeuFlowLite) use the packaged weights and the fused "
+                         "model path (RAFT at 8 iterations)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="serve the learned model in bfloat16 (FusedModelStream"
+                         "(bf16=True)); the flow and the velocity stay fp32")
     args = ap.parse_args(argv)
+    if args.bf16 and args.model == "farneback":
+        ap.error("--bf16 serves a learned model (--model neuflow, raft or "
+                 "raft_large); the Farneback backend, plain or --fused, runs "
+                 "in fp32")
 
     from .bus import Bus
     from .fused import make_fused_farneback_backend, make_fused_model_backend
@@ -64,16 +70,21 @@ def run(argv=None) -> dict:
            "frames_failed": 0, "published": 0, "seconds": 0.0, "ended": True,
            "final_vx": None, "error_mps": None, "exit_code": 1}
     if args.model != "farneback":
-        from ..models import convert, raft
+        from ..models import convert, neuflow, raft
 
-        load = (convert.load_raft_synth if args.model == "raft_large"
-                else convert.load_raft_small_synth)
+        load, estimate = {
+            "neuflow": (convert.load_neuflow_lite_synth, neuflow.estimate),
+            "raft": (convert.load_raft_small_synth,
+                     functools.partial(raft.estimate, iters=8)),
+            "raft_large": (convert.load_raft_synth,
+                           functools.partial(raft.estimate, iters=8)),
+        }[args.model]
         model = load(device=device)
         if model is None:
             print(f"no packaged weights for {args.model}")
             return out
-        backend = make_fused_model_backend(
-            model, functools.partial(raft.estimate, iters=8), device=device)
+        backend = make_fused_model_backend(model, estimate, bf16=args.bf16,
+                                           device=device)
     elif args.fused:
         backend = make_fused_farneback_backend(device=device, **fb_kwargs)
     else:

@@ -16,6 +16,7 @@ the latency from a frame's arrival to its velocity scalar on the host;
 """
 from __future__ import annotations
 
+import copy
 import queue as queue_mod
 import threading
 import time
@@ -31,6 +32,7 @@ from ..classical.farneback import (
 )
 from ..core.color import bgr_to_gray
 from ..core.device import device_scope, resolve_device
+from ..models.common import cast_params
 
 
 def check_aggregate(aggregate: str) -> None:
@@ -159,20 +161,24 @@ class FusedModelStream:
     ``estimate_fn(model, img1, img2) -> flow [H, W, 2]`` is any of the zoo's
     ``estimate`` functions (the weights live in the module).  ``model`` must
     sit on ``device`` (the card unless ``"cpu"`` is asked for).
-    ``bf16=True`` (bfloat16 serving) is not ported yet and raises."""
+
+    ``bf16=True`` serves the model in bfloat16 (reference
+    ``FusedModelStream(bf16=True)``): the stream casts a copy of the model
+    once (``self.model``; the caller's stays as it was), normalizes each
+    frame in fp32 on the device and then casts it; the flow and du stay
+    fp32."""
 
     def __init__(self, model, estimate_fn: Callable, aggregate: str = "mean",
                  bgr_to_rgb: bool = False, bf16: bool = False, *, device=None):
         check_aggregate(aggregate)
-        if bf16:
-            raise NotImplementedError(
-                "bf16 serving is not ported yet (ROADMAP module item 6); "
-                "the stream serves fp32 only")
         self.device = resolve_device(device)
         where = {p.device for p in model.parameters()}
         if where != {self.device}:
             raise ValueError(f"the model's parameters are on {sorted(map(str, where))}, "
                              f"the stream runs on {self.device}")
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
+        if bf16:
+            model = cast_params(copy.deepcopy(model), self.dtype)
         self.model = model
         self.estimate_fn = estimate_fn
         self.aggregate = aggregate
@@ -193,7 +199,7 @@ class FusedModelStream:
     def _normalize(self, frame: torch.Tensor) -> torch.Tensor:
         # times the fp32 reciprocal, as the reference rounds it
         f = frame.float() * (1.0 / 255.0)
-        return f.flip(-1) if self.bgr_to_rgb else f
+        return (f.flip(-1) if self.bgr_to_rgb else f).to(self.dtype)
 
     def _advance(self, frame: torch.Tensor, mask: torch.Tensor | None):
         f = self._normalize(frame)
@@ -222,10 +228,10 @@ class FusedModelStream:
 def make_fused_model_backend(model, estimate_fn: Callable,
                              aggregate: str = "mean", bgr_to_rgb: bool = False,
                              bf16: bool = False, *, device=None) -> Callable:
-    """Flow-node backend wrapping :class:`FusedModelStream`: the previous
-    normalized frame lives on the device, so ``prev`` only seeds the first
-    call; returns the aggregated pixel displacement
-    (``returns_displacement``)."""
+    """Flow-node backend wrapping :class:`FusedModelStream` (``bf16=True``
+    serves the model in bfloat16): the previous normalized frame lives on
+    the device, so ``prev`` only seeds the first call; returns the
+    aggregated pixel displacement (``returns_displacement``)."""
     stream = FusedModelStream(model, estimate_fn, aggregate, bgr_to_rgb, bf16,
                               device=device)
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 import opticalflowcontainer_tpu.classical.farneback as jfb
 from opticalflowcontainer_tpu_torch.classical import farneback as tfb
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 DEFAULTS = dict(pyr_scale=0.5, levels=3, winsize=15, iterations=3, poly_n=5,
                 poly_sigma=1.2)

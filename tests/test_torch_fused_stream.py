@@ -14,6 +14,7 @@ from opticalflowcontainer_tpu_torch.classical import farneback as tfb
 from opticalflowcontainer_tpu_torch.classical.convert import stream_state_from_jax
 from opticalflowcontainer_tpu_torch.runtime import fused as tfused
 from opticalflowcontainer_tpu_torch.runtime.velocity import VelocityEstimator
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FB = dict(levels=2, winsize=13, iterations=2)
 

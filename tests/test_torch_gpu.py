@@ -371,7 +371,13 @@ def test_pwcnet_on_card_matches_cpu(cuda):
 def _lfn_b1_correlations():
     import chip_smoke
 
-    return [c for c in chip_smoke.CORR_B1 if not c[0].startswith("PWC-Net")]
+    return [c for c in chip_smoke.CORR_B1 if c[0].startswith(("LiteFlowNet", "LFN3"))]
+
+
+def _neuflow_correlations():
+    import chip_smoke
+
+    return [c for c in chip_smoke.CORR_B1 if c[0].startswith("NeuFlow")]
 
 
 @pytest.mark.parametrize("case", _lfn_b1_correlations(), ids=lambda c: c[0])
@@ -407,6 +413,88 @@ def test_warp_kernel_at_lfn_shapes(shape, cuda):
     want = k3.warp_bilinear_plain(src, u, v)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", _neuflow_correlations(), ids=lambda c: c[0])
+def test_correlation_kernel_at_neuflow_shapes(case, cuda):
+    """K4 (radius 4, K=9) at NeuFlowLite's 1/8 correlation at 640x480 and
+    NeuFlow-v2's 1/16 and 1/8 ones at 768x432: against the plain version at
+    1e-6 of max|f1| max|f2|, and a second launch bit for bit."""
+    _, config, shape = case
+    rng = np.random.default_rng(17)
+    f1, f2 = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+              for _ in range(2))
+    got = k4.local_correlation(f1, f2, *config)
+    want = k4.correlation_plain(f1, f2, *config)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, 81) + shape[2:]
+    assert (got - want).abs().max() <= 1e-6 * f1.abs().max() * f2.abs().max()
+    assert torch.equal(k4.local_correlation(f1, f2, *config), got)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 60, 80), (1, 128, 27, 48), (1, 128, 54, 96)])
+def test_warp_kernel_at_neuflow_shapes(shape, cuda):
+    """K3 at NeuFlow's feature warps (NeuFlowLite 1/8 at 640x480, NeuFlow-v2
+    1/16 and 1/8 at 768x432), zeros padding: bit-equal to the plain
+    version."""
+    rng = np.random.default_rng(18)
+    B, C, H, W = shape
+    src = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+    u, v = (torch.from_numpy(rng.uniform(-9, 9, (B, H, W)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    got = k3.warp_bilinear(src, u, v)
+    want = k3.warp_bilinear_plain(src, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["lite", "v2"])
+def test_neuflow_on_card_matches_cpu(v2, cuda):
+    """estimate at 64 x 96 with chip_smoke's seeded weights: the card (K3,
+    K4, fp32 convolutions) against the CPU (plain versions), with 2 and 2
+    (NeuFlowLite) or 9 and 9 (NeuFlow-v2) K3 and K4 launches per call.
+    Bounds relative to the flow's RMS, as chip_smoke's: mean 1e-3, max
+    5e-2."""
+    import chip_smoke
+    from opticalflowcontainer_tpu_torch.models import neuflow, neuflow_v2
+
+    mod, cls, tag = ((neuflow_v2, neuflow_v2.NeuFlowV2, "neuflow_v2") if v2
+                     else (neuflow, neuflow.NeuFlowLite, "neuflow_lite"))
+    model = chip_smoke.seeded_neuflow(torch, cls, 0, "cpu")
+    rng = np.random.default_rng(19)
+    a = rng.uniform(0, 1, (64, 96, 3)).astype(np.float32)
+    b = np.roll(a, 3, 1)
+    k3.warp_bilinear.launches = k4.local_correlation.launches = 0
+    on_card = mod.estimate(model.to(cuda), a, b).cpu().numpy()
+    assert {"warp_bilinear": k3.warp_bilinear.launches,
+            "local_correlation": k4.local_correlation.launches} == \
+        chip_smoke.NEUFLOW_LAUNCHES[tag]
+    on_cpu = mod.estimate(model.cpu(), a, b).numpy()
+    rms = np.sqrt((on_cpu ** 2).mean())
+    d = np.abs(on_card - on_cpu)
+    assert d.mean() <= 1e-3 * rms and d.max() <= 5e-2 * rms, (d.mean(), d.max(), rms)
+
+
+def test_bf16_stream_launches_the_kernels_on_card(cuda):
+    """FusedModelStream(bf16=True) over a seeded NeuFlowLite on the card:
+    bf16 parameters, du fp32 and finite, and the fp32 stream's K3 and K4
+    launches (the kernels, not their plain versions, serve bf16)."""
+    import chip_smoke
+    from opticalflowcontainer_tpu_torch.models import neuflow
+    from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
+
+    model = chip_smoke.seeded_neuflow(torch, neuflow.NeuFlowLite, 0, cuda)
+    frames = chip_smoke.bgr_frames(torch, 96, 128, 4, 1.5, seed=3, device=cuda)
+    counts = []
+    for bf16 in (False, True):
+        s = FusedModelStream(model, neuflow.estimate, bf16=bf16, device=cuda)
+        s.step(frames[0])
+        k3.warp_bilinear.launches = k4.local_correlation.launches = 0
+        dus = [s.step(f) for f in frames[1:]]
+        assert all(du.dtype == torch.float32 and torch.isfinite(du) for du in dus)
+        counts.append((k3.warp_bilinear.launches, k4.local_correlation.launches))
+    assert all(p.dtype == torch.bfloat16 for p in s.model.parameters())
+    assert counts[0] == counts[1] == (6, 6)
 
 
 @pytest.mark.parametrize("three", [True, False], ids=["lfn3", "lfn"])

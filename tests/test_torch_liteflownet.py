@@ -26,6 +26,7 @@ from opticalflowcontainer_tpu_torch.models import liteflownet as tlfn
 from opticalflowcontainer_tpu_torch.models import liteflownet3 as tlfn3
 from opticalflowcontainer_tpu_torch.ops.unfold import neighbourhood_sum
 from test_torch_pwcnet import MAX_PX, MEAN_PX, _flat, _nchw, _perturbed_init
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 LAYER_TOL = 1e-5
 # (file, model class, npz keys) of the two packaged LiteFlowNet checkpoints

@@ -28,6 +28,7 @@ from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
 from test_torch_liteflownet import (
     assert_close, hwc_to_nchw, images, level_inputs, nchw_to_hwc, run_stage)
 from test_torch_pwcnet import MAX_PX
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 LFN3_MEAN_PX = 5e-4
 

@@ -16,6 +16,7 @@ from opticalflowcontainer_tpu_torch.models import convert
 from opticalflowcontainer_tpu_torch.models import liteflownet3 as tlfn3
 from opticalflowcontainer_tpu_torch.models import pwcnet as tpwc
 from opticalflowcontainer_tpu_torch.runtime import fused as tfused
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 DU_PX = 5e-4
 
@@ -123,14 +124,15 @@ def test_backend_matches_jax(bgr_to_rgb, jax_lfn3, torch_lfn3):
 
 
 def test_stream_refuses_what_it_does_not_serve(torch_lfn3):
-    """bf16 serving is not ported yet and raises rather than serving fp32;
-    a model on another device than the stream's, and an unknown aggregate,
-    raise; without a card the stream needs device='cpu'."""
-    with pytest.raises(NotImplementedError, match="module item 6"):
-        tfused.FusedModelStream(torch_lfn3, tlfn3.estimate, bf16=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="module item 6"):
-        tfused.make_fused_model_backend(torch_lfn3, tlfn3.estimate, bf16=True,
-                                        device="cpu")
+    """bf16 is served (a bf16 copy of the model; the caller's stays fp32,
+    tests/test_torch_bf16_serving.py holds the numbers); a model on another
+    device than the stream's, and an unknown aggregate, raise; without a
+    card the stream needs device='cpu'."""
+    for make in (tfused.FusedModelStream, tfused.make_fused_model_backend):
+        made = make(torch_lfn3, tlfn3.estimate, bf16=True, device="cpu")
+        stream = getattr(made, "stream", made)
+        assert all(p.dtype == torch.bfloat16 for p in stream.model.parameters())
+    assert all(p.dtype == torch.float32 for p in torch_lfn3.parameters())
     with pytest.raises(ValueError, match="aggregate"):
         tfused.FusedModelStream(torch_lfn3, tlfn3.estimate, "mode", device="cpu")
     meta = tpwc.PWCNet().to("meta")

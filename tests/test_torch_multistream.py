@@ -10,7 +10,6 @@ Tolerance against JAX: 1e-6 px.  The port's Farneback equals the JAX
 one op by op on the CPU; the JAX backend is jitted, and XLA's fusion moves
 these 96x128 fields' mean u by up to 4.8e-7 px (2 ulp at 3 px)."""
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -20,6 +19,7 @@ from opticalflowcontainer_tpu.runtime import multistream as jms
 from opticalflowcontainer_tpu_torch.runtime import multistream as tms
 from opticalflowcontainer_tpu_torch.runtime.bus import Bus
 from opticalflowcontainer_tpu_torch.runtime.fused import FusedFarnebackStream
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(levels=2, winsize=13, iterations=2)
 H, W = 96, 128
@@ -157,9 +157,14 @@ def test_multistream_flow_end_to_end(depth):
         n_streams=2, pixel_to_meter=1.0, pipeline_depth=depth)
     got = {0: [], 1: []}
     done = threading.Event()
+    # pair t (frames t-1, t) published on both streams
+    published = {t: threading.Event() for t in range(1, 4)}
 
     def on(i, m):
         got[i].append(m.x)
+        t = min(len(got[0]), len(got[1]))
+        if t in published:
+            published[t].set()
         if len(got[0]) == len(got[1]) == 3:
             done.set()
 
@@ -171,7 +176,9 @@ def test_multistream_flow_end_to_end(depth):
             for i in range(2):
                 bgr = np.repeat(f[t, i][..., None], 3, -1).round().astype(np.uint8)
                 ms.push_frame(i, bgr, stamp=float(t))
-            time.sleep(0.3)  # let the batcher take every pair
+            # the batcher takes pair t before frame t + 1 could overwrite it
+            if t:
+                assert published[t].wait(timeout=30.0)
         assert done.wait(timeout=30.0)
     finally:
         assert ms.stop(timeout=10.0)

@@ -20,6 +20,7 @@ from opticalflowcontainer_tpu_torch.models import pwcnet as tpwc
 from opticalflowcontainer_tpu_torch.ops import correlation as k4
 from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
 from opticalflowcontainer_tpu_torch.runtime import nodes as tnodes
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 NPZ = convert.WEIGHTS_DIR / "pwcnet_synth.npz"
 # Whole-net bounds, in px.  Measured ~2e-6 mean and ~1e-5 max (64x64 and

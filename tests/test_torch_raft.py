@@ -25,6 +25,7 @@ from opticalflowcontainer_tpu_torch.models import raft as traft
 from opticalflowcontainer_tpu_torch.ops import allpairs
 from opticalflowcontainer_tpu_torch.ops.unfold import unfold
 from opticalflowcontainer_tpu_torch.runtime import demo
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 OP_TOL = 1e-5
 MEAN_PX, MAX_PX = 1e-5, 2e-4

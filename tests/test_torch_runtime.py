@@ -36,6 +36,7 @@ from opticalflowcontainer_tpu_torch.runtime.messages import (
     ImageMsg,
     PointCloudMsg,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FB = dict(levels=2, winsize=13, iterations=2)  # the runtime's default
 H, W = 96, 128
