@@ -90,7 +90,15 @@ seconds:
 21. bf16 serving: each of the seven families through
    FusedModelStream(bf16=True) at its phase's size over 100 frames, p50/p99
    beside the fp32 stream's, the bf16 flow (fp32, finite) against the fp32
-   flow on one pair, and K3/K4 launches equal to the fp32 stream's.
+   flow on one pair, and K3/K4 launches equal to the fp32 stream's;
+22. the offline eval and tools: run_eval --method farneback on the easy
+   fishnet suite (640x480, 32 pairs; its JSON row, the mean EPE beside
+   README.md's JAX figure, K1/K2 launches a pair, pairs 0-1 on the card
+   against the CPU), pwcnet and neuflow on 4 fishnet pairs (K3/K4 launches
+   a pair; seeded weights where the npz is absent, said on its own line),
+   --time-device for farneback and pwcnet, run_pair and fish_speed on two
+   PNGs of a known subpixel shift written by the port's imwrite (the .flo's
+   interior mean u within 0.05 px of it), and zoo_latency --quick.
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
@@ -270,17 +278,21 @@ def bgr_frames(torch, H, W, n, dx, seed, device) -> np.ndarray:
     return (g[..., None] * gains).clamp(0, 255).round().to(torch.uint8).cpu().numpy()
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
 def device_phase(torch) -> dict:
     from opticalflowcontainer_tpu_torch.core.device import capabilities
 
     caps = capabilities()
     print(json.dumps(caps))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    for line in smi.stdout.strip().splitlines():
-        print(line.strip())
+    print(card_line())
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -2391,6 +2403,128 @@ def bf16_phase(torch, dev, n=101) -> dict:
     return by_path
 
 
+def eval_rows(run_eval, argv) -> list:
+    """The JSON rows ``run_eval.main(argv)`` prints, printed here too."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        require(run_eval.main(argv) == 0, f"run_eval {' '.join(argv)} returns 0")
+    rows = [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+    for row in rows:
+        print(f"run_eval {' '.join(argv)}: {json.dumps(row)}")
+    return rows
+
+
+# K3 and K4 launches per eval pair of the learned methods phase 22 drives
+EVAL_LAUNCHES = {"pwcnet": {"warp_bilinear": 4, "local_correlation": 5},
+                 "neuflow": {"warp_bilinear": 2, "local_correlation": 2}}
+README_FARNEBACK_FISHNET_EPE = 0.094  # README.md's table: the JAX package's
+
+
+def eval_phase(torch, dev, H=480, W=640, n=32, shift=1.37) -> dict:
+    """The offline eval and tools on the card: run_eval --method farneback
+    on the easy fishnet suite at 640x480 (32 pairs; K1 and K2 launched
+    (levels + 1) x 3 times a pair; pairs 0-1 against the CPU at phase 4's
+    bars), pwcnet and neuflow on 4 fishnet pairs (K3 / K4 launches a
+    pair), --time-device for farneback and pwcnet, run_pair and fish_speed
+    on two 640x480 PNGs of a known subpixel shift written by the port's
+    imwrite (the .flo's interior mean u within 0.05 px of the shift, the
+    PNGs decoded by the port's imread), and zoo_latency --quick."""
+    import io
+
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.eval import run_eval
+    from opticalflowcontainer_tpu_torch.eval.datasets import fishnet_eval_pairs
+    from opticalflowcontainer_tpu_torch.models import convert
+    from opticalflowcontainer_tpu_torch.tools import fish_speed, run_pair, zoo_latency
+    from opticalflowcontainer_tpu_torch.utils import imread, imwrite, read_flo
+
+    by_path = {}
+    per_pair = (fb._num_levels(H, W, 3, 0.5) + 1) * 3  # cv2's defaults
+    reset_counts()
+    t0 = time.perf_counter()
+    (row,) = eval_rows(run_eval, ["--method", "farneback", "--fishnet", "--n", str(n)])
+    counts = kernel_counts()
+    print(f"  farneback, {n} fishnet pairs at {W}x{H} in {time.perf_counter() - t0:.2f} s "
+          f"(pairs made on the host included); launches {counts}")
+    print(f"  farneback fishnet mean EPE {row['epe']:.4f} px on the card; README.md's "
+          f"{README_FARNEBACK_FISHNET_EPE} is the JAX package's (accuracy, no bar)")
+    require(row["n"] == n and all(np.isfinite(row[k]) for k in ("epe", "p50", "p95")),
+            "a finite farneback row over every pair")
+    require(counts["farneback_update"] == counts["blur_solve"] == per_pair * n,
+            f"K1 and K2 launched {per_pair} times a pair")
+    by_path["eval_farneback"] = counts
+
+    pairs = fishnet_eval_pairs(2, H, W)
+    card = run_eval._make_method("farneback", None, False, device=dev)
+    cpu = run_eval._make_method("farneback", None, False, device="cpu")
+    for i, (img1, img2, gt, _) in enumerate(pairs):
+        d = np.abs(card(img1, img2) - cpu(img1, img2))
+        print(f"  farneback pair {i}: card vs CPU mean {d.mean():.3e}, max {d.max():.3e} px")
+        require(d.mean() <= 1e-3 and d.max() <= 1e-2,
+                "farneback on the card within 1e-3 px mean, 1e-2 px max of the CPU")
+
+    for method, tag in (("pwcnet", "pwcnet_synth.npz"), ("neuflow", "neuflow_lite_synth.npz")):
+        weights = "packaged" if (convert.WEIGHTS_DIR / tag).exists() else "seeded"
+        print(f"  {method} weights: {weights}" + (
+            " (the npz is absent: its EPE measures the path, not accuracy)"
+            if weights == "seeded" else ""))
+        reset_counts()
+        (row,) = eval_rows(run_eval, ["--method", method, "--fishnet", "--n", "4"])
+        counts = kernel_counts()
+        want = {k: 4 * v for k, v in EVAL_LAUNCHES[method].items()}
+        print(f"  {method}: launches {counts} over 4 pairs")
+        require(np.isfinite(row["epe"]), f"a finite {method} row")
+        require(all(counts[k] == v for k, v in want.items()),
+                f"{method}: K3 / K4 launched {EVAL_LAUNCHES[method]} a pair")
+        by_path[f"eval_{method}"] = counts
+
+    card_name = card_line()
+    for row in eval_rows(run_eval, ["--method", "farneback,pwcnet", "--fishnet", "--n",
+                                    "1", "--time-device"]):
+        print(f"  {row['method']}: {row['device_ms_per_frame']} ms a pair at {W}x{H} "
+              f"({row['timer']}{', unreliable' if row['unreliable'] else ''}) on "
+              f"{card_name}")
+        require(row["device_ms_per_frame"] > 0, "a device time")
+
+    g = plane_waves(torch, H, W, [(0.0, 0.0), (shift, 0.0)], seed=23, device=dev)
+    frames = (g[..., None] * torch.tensor(GAINS_BGR, device=dev)).clamp(0, 255).round()
+    frames = frames.to(torch.uint8).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a.png"), os.path.join(tmp, "b.png")
+        imwrite(a, frames[0])
+        imwrite(b, frames[1])
+        flo, hsv = os.path.join(tmp, "f.flo"), os.path.join(tmp, "f.png")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            require(run_pair.main([a, b, "--out-flo", flo, "--out-png", hsv]) == 0,
+                    "run_pair returns 0")
+            require(fish_speed.main([a, b, "--out-prefix", os.path.join(tmp, "fs")]) == 0,
+                    "fish_speed returns 0")
+        for line in out.getvalue().splitlines():
+            print(f"  {line.replace(tmp, '<tmp>')}")
+        flow = read_flo(flo)
+        u = float(flow[40:-40, 40:-40, 0].mean())
+        print(f"  run_pair: interior mean u {u:.4f} px, shift {shift} px")
+        require(flow.shape == (H, W, 2) and abs(u - shift) <= 0.05,
+                "run_pair's .flo interior mean u within 0.05 px of the shift")
+        for path in (hsv, *(os.path.join(tmp, f"fs{p}.png") for p in ("_one", "_two", "_flow"))):
+            img = imread(path)
+            require(img.shape == (H, W, 3) and img.dtype == np.uint8,
+                    f"{os.path.basename(path)} decodes to a {W}x{H} BGR image")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows = zoo_latency.main(["--quick", "--models", "pwcnet,neuflow_lite"])
+    for row in rows:
+        print(f"  zoo_latency --quick: {json.dumps(row)} on {card_name}")
+    require([r["model"] for r in rows] == ["pwcnet", "neuflow_lite"],
+            "zoo_latency prints a row a model")
+    return by_path
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2464,6 +2598,8 @@ def main() -> int:
         by_path.update(neuflow_phase(torch, dev, args.trace, v2=True))
     with phase("21 bf16 serving, seven families (FusedModelStream(bf16=True))"):
         by_path.update(bf16_phase(torch, dev))
+    with phase("22 offline eval and tools (run_eval, run_pair, fish_speed, zoo_latency)"):
+        by_path.update(eval_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

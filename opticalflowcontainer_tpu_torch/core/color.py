@@ -9,6 +9,13 @@ import torch
 _BT601 = (0.299, 0.587, 0.114)
 
 
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] RGB -> [..., H, W] luma, the BT.601 terms summed in the
+    reference's order (R, G, B), in the input's float dtype."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    return _BT601[0] * r + _BT601[1] * g + _BT601[2] * b
+
+
 def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 3] BGR -> [..., H, W] luma, in the input's float dtype."""
     b, g, r = img[..., 0], img[..., 1], img[..., 2]

@@ -14,11 +14,20 @@ the reference's ``convert_torch_deconv``.  An ``nn.Linear`` is a flax
 ``nn.LayerNorm`` a flax ``LayerNorm`` (``scale`` -> weight, ``bias``), and a
 module's own ``nn.Parameter`` a bare flax ``self.param`` (``<path>/<name>``,
 NeuFlowLite's ``match_temp`` and ``matching_gate``).
+
+The reference's converters of torch checkpoints (sniklaus' PWC-Net,
+LiteFlowNet and LiteFlowNet3, and this repo's RAFT-small naming) are here
+too, as :func:`convert_pwcnet` and the rest: each takes such a
+``state_dict`` and returns the port's.  They walk the reference's tables,
+which name each torch module and the model path it fills (the port's copy
+below).  The port's modules keep torch's layouts (OIHW convolutions,
+ConvTranspose2d's [Cin, Cout/g, kH, kW]), so an entry only renames.
 """
 from __future__ import annotations
 
 import functools
 import pathlib
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -165,3 +174,193 @@ def load_neuflow_v2_synth(device=None) -> NeuFlowV2 | None:
     """:class:`NeuFlowV2` with the packaged ``neuflow_v2_synth.npz``, as
     :func:`load_pwcnet_synth`."""
     return _load_synth("neuflow_v2_synth.npz", NeuFlowV2(), device)
+
+
+# ------------------------------------------ reference torch checkpoints
+
+class Entry(NamedTuple):
+    torch_name: str          # the checkpoint's module prefix (<name>.weight/.bias)
+    flax_path: tuple[str, ...]  # the model's module path
+    kind: str                # 'conv' (a Conv), 'rawconv' (an AxisConv), 'deconv'
+    groups: int = 1
+
+
+def pwcnet_table() -> list[Entry]:
+    t: list[Entry] = []
+    levels = ["netOne", "netTwo", "netThr", "netFou", "netFiv", "netSix"]
+    for i, lname in enumerate(levels):
+        for j in range(3):
+            t.append(Entry(f"netExtractor.{lname}.{j * 2}",
+                           ("extractor", f"level{i + 1}", f"conv{j}"), "conv"))
+    decoders = {2: "netTwo", 3: "netThr", 4: "netFou", 5: "netFiv", 6: "netSix"}
+    dense = ["netOne", "netTwo", "netThr", "netFou", "netFiv"]
+    for lvl, dname in decoders.items():
+        if lvl < 6:
+            t.append(Entry(f"{dname}.netUpflow", (f"decoder{lvl}", "upflow"), "deconv"))
+            t.append(Entry(f"{dname}.netUpfeat", (f"decoder{lvl}", "upfeat"), "deconv"))
+        for i, sub in enumerate(dense):
+            t.append(Entry(f"{dname}.{sub}.0", (f"decoder{lvl}", f"dense{i}"), "conv"))
+        t.append(Entry(f"{dname}.netSix.0", (f"decoder{lvl}", "predict"), "conv"))
+    for i in range(7):
+        t.append(Entry(f"netRefiner.netMain.{i * 2}", ("refiner", f"conv{i}"), "conv"))
+    return t
+
+
+_FEATURE_MAP = [
+    ("netOne.0", "conv1"),
+    ("netTwo.0", "conv2a"), ("netTwo.2", "conv2b"), ("netTwo.4", "conv2c"),
+    ("netThr.0", "conv3a"), ("netThr.2", "conv3b"),
+    ("netFou.0", "conv4a"), ("netFou.2", "conv4b"),
+    ("netFiv.0", "conv5"),
+    ("netSix.0", "conv6"),
+]
+
+
+def _features_entries() -> list[Entry]:
+    return [Entry(f"netFeatures.{tn}", ("features", ours), "conv")
+            for tn, ours in _FEATURE_MAP]
+
+
+def liteflownet_table() -> list[Entry]:
+    """ModuleList index i is level [2, 3, 4, 5, 6][i]."""
+    t = _features_entries()
+    for idx, lvl in enumerate((2, 3, 4, 5, 6)):
+        m, s, r = f"netMatching.{idx}", f"netSubpixel.{idx}", f"netRegularization.{idx}"
+        if lvl == 2:
+            t.append(Entry(f"{m}.netFeat.0", (f"matching{lvl}", "feat"), "conv"))
+            t.append(Entry(f"{s}.netFeat.0", (f"subpixel{lvl}", "feat"), "conv"))
+        if lvl != 6:
+            t.append(Entry(f"{m}.netUpflow", (f"matching{lvl}", "upflow"), "deconv", 2))
+        if lvl < 4:
+            t.append(Entry(f"{m}.netUpcorr", (f"matching{lvl}", "upcorr"), "deconv", 49))
+        for i in range(3):
+            t.append(Entry(f"{m}.netMain.{i * 2}", (f"matching{lvl}", f"main{i}"), "conv"))
+            t.append(Entry(f"{s}.netMain.{i * 2}", (f"subpixel{lvl}", f"main{i}"), "conv"))
+        t.append(Entry(f"{m}.netMain.6", (f"matching{lvl}", "head"), "conv"))
+        t.append(Entry(f"{s}.netMain.6", (f"subpixel{lvl}", "head"), "conv"))
+        if lvl < 5:
+            t.append(Entry(f"{r}.netFeat.0", (f"regularization{lvl}", "feat"), "conv"))
+        for i in range(6):
+            t.append(Entry(f"{r}.netMain.{i * 2}", (f"regularization{lvl}", f"main{i}"), "conv"))
+        if lvl >= 5:
+            t.append(Entry(f"{r}.netDist.0", (f"regularization{lvl}", "dist"), "conv"))
+        else:
+            t.append(Entry(f"{r}.netDist.0", (f"regularization{lvl}", "dist_v"), "rawconv"))
+            t.append(Entry(f"{r}.netDist.1", (f"regularization{lvl}", "dist_h"), "rawconv"))
+        t.append(Entry(f"{r}.netScaleX", (f"regularization{lvl}", "scale_x"), "conv"))
+        t.append(Entry(f"{r}.netScaleY", (f"regularization{lvl}", "scale_y"), "conv"))
+    return t
+
+
+def liteflownet3_table() -> list[Entry]:
+    """ModuleList index i is level [3, 4, 5, 6][i]."""
+    t = _features_entries()
+    for idx, lvl in enumerate((3, 4, 5, 6)):
+        m, s, r = f"netMatching.{idx}", f"netSubpixel.{idx}", f"netRegularization.{idx}"
+        if lvl <= 4:
+            t.append(Entry(f"{m}.netUpconf", (f"matching{lvl}", "upconf"), "deconv"))
+            for i in range(3):
+                t.append(Entry(f"{m}.confFeat.{i * 2}", (f"matching{lvl}", f"conf{i}"), "conv"))
+            t.append(Entry(f"{m}.confNet.0", (f"matching{lvl}", "conf_head"), "conv"))
+            t.append(Entry(f"{m}.dispNet.0", (f"matching{lvl}", "disp_head"), "conv"))
+            for i in range(2):
+                t.append(Entry(f"{m}.corrFeat.{i * 2}", (f"matching{lvl}", f"corr{i}"), "conv"))
+            t.append(Entry(f"{m}.corrScalar.0", (f"matching{lvl}", "corr_scalar0"), "conv"))
+            t.append(Entry(f"{m}.corrScalar.2", (f"matching{lvl}", "corr_scalar1"), "conv"))
+            t.append(Entry(f"{m}.corrOffset.0", (f"matching{lvl}", "corr_offset0"), "conv"))
+            t.append(Entry(f"{m}.corrOffset.2", (f"matching{lvl}", "corr_offset1"), "conv"))
+        if lvl != 6:
+            t.append(Entry(f"{m}.netUpflow", (f"matching{lvl}", "upflow"), "deconv", 2))
+        for i in range(5):
+            t.append(Entry(f"{m}.netMain.{i * 2}", (f"matching{lvl}", f"main{i}"), "conv"))
+            t.append(Entry(f"{s}.netMain.{i * 2}", (f"subpixel{lvl}", f"main{i}"), "conv"))
+        t.append(Entry(f"{m}.netMain.10", (f"matching{lvl}", "head"), "conv"))
+        t.append(Entry(f"{s}.netMain.10", (f"subpixel{lvl}", "head"), "conv"))
+        if lvl <= 4:
+            t.append(Entry(f"{r}.netFeat.0", (f"regularization{lvl}", "feat"), "conv"))
+        for i in range(6):
+            t.append(Entry(f"{r}.netMain.{i * 2}", (f"regularization{lvl}", f"main{i}"), "conv"))
+        if lvl >= 5:
+            t.append(Entry(f"{r}.netDist.0", (f"regularization{lvl}", "dist"), "conv"))
+        else:
+            t.append(Entry(f"{r}.netDist.0", (f"regularization{lvl}", "dist_v"), "rawconv"))
+            t.append(Entry(f"{r}.netDist.1", (f"regularization{lvl}", "dist_h"), "rawconv"))
+        if lvl in (4, 5):
+            t.append(Entry(f"{r}.confNet.0", (f"regularization{lvl}", "conf_head"), "conv"))
+        t.append(Entry(f"{r}.netScaleX", (f"regularization{lvl}", "scale_x"), "conv"))
+        t.append(Entry(f"{r}.netScaleY", (f"regularization{lvl}", "scale_y"), "conv"))
+    return t
+
+
+def raft_small_table() -> list[Entry]:
+    """RAFT-small's convolutions under this repo's module naming; a
+    torchvision ``raft_small`` checkpoint would need its prefixes renamed
+    first (feature_encoder -> fnet, update_block.motion_encoder -> motion,
+    ...)."""
+    t: list[Entry] = []
+    for enc in ("fnet", "cnet"):
+        t.append(Entry(f"{enc}.stem", (enc, "stem"), "conv"))
+        for i, (cin, ch, s) in enumerate(((32, 32, 1), (32, 64, 2), (64, 96, 2))):
+            for blk, bcin, bs in ((f"block{i}a", cin, s), (f"block{i}b", ch, 1)):
+                for c in ("conv1", "conv2", "conv3"):
+                    t.append(Entry(f"{enc}.{blk}.{c}", (enc, blk, c), "conv"))
+                if bs != 1 or bcin != ch:
+                    t.append(Entry(f"{enc}.{blk}.down", (enc, blk, "down"), "conv"))
+        t.append(Entry(f"{enc}.proj", (enc, "proj"), "conv"))
+    for m in ("convc1", "convf1", "convf2", "conv"):
+        t.append(Entry(f"motion.{m}", ("motion", m), "conv"))
+    for g in ("convz", "convr", "convq"):
+        t.append(Entry(f"gru.{g}", ("gru", g), "conv"))
+    t.append(Entry("head.conv1", ("head", "conv1"), "conv"))
+    t.append(Entry("head.conv2", ("head", "conv2"), "conv"))
+    return t
+
+
+def _rename(sd: Mapping) -> dict:
+    # every occurrence, as the reference's loaders replace: real sniklaus
+    # checkpoints nest module-prefixed names (moduleExtractor.moduleOne.0)
+    return {k.replace("module", "net"): v for k, v in sd.items()}
+
+
+def _tensor(v) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(v, np.float32)).clone().contiguous()
+
+
+def apply_table(sd: Mapping, table: list[Entry]) -> dict[str, torch.Tensor]:
+    """The port's state dict from the reference checkpoint ``sd`` (names to
+    arrays or tensors): each entry's weight and, where the checkpoint has
+    one, bias, under the model's module path, as float32."""
+    sd = _rename(sd)
+    out: dict[str, torch.Tensor] = {}
+    for e in table:
+        name = ".".join(e.flax_path)
+        out[f"{name}.weight"] = _tensor(sd[f"{e.torch_name}.weight"])
+        bias = sd.get(f"{e.torch_name}.bias")
+        if bias is not None:
+            out[f"{name}.bias"] = _tensor(bias)
+    return out
+
+
+def invert_entry(e: Entry, weight, bias=None) -> dict[str, np.ndarray]:
+    """The checkpoint's arrays of entry ``e`` from the port module's weight
+    and bias (the layouts agree, so only the names change)."""
+    out = {f"{e.torch_name}.weight": np.ascontiguousarray(np.asarray(weight))}
+    if bias is not None:
+        out[f"{e.torch_name}.bias"] = np.ascontiguousarray(np.asarray(bias))
+    return out
+
+
+def convert_pwcnet(sd: Mapping) -> dict[str, torch.Tensor]:
+    return apply_table(sd, pwcnet_table())
+
+
+def convert_liteflownet(sd: Mapping) -> dict[str, torch.Tensor]:
+    return apply_table(sd, liteflownet_table())
+
+
+def convert_liteflownet3(sd: Mapping) -> dict[str, torch.Tensor]:
+    return apply_table(sd, liteflownet3_table())
+
+
+def convert_raft_small(sd: Mapping) -> dict[str, torch.Tensor]:
+    return apply_table(sd, raft_small_table())

@@ -21,8 +21,8 @@ Topic names follow the reference system:
 - ``/optical_flow/image_live_feed|image_flow|image_mask`` (ImageMsg)
 
 Not ported yet (ROADMAP module item 3 and those it names): the video-file
-and frame-directory sources, the junction detector node, the junction
-tracker and the adaptive backend.
+source, the junction detector node, the junction tracker and the adaptive
+backend.
 """
 from .bus import Bus, Subscription, ApproximateTimeSynchronizer
 from .messages import (
@@ -34,7 +34,7 @@ from .messages import (
     PointCloudMsg,
     FlowMsg,
 )
-from .sources import SyntheticCamera
+from .sources import FrameDirectorySource, SyntheticCamera
 from .nodes import (
     FlowNode,
     DepthNode,
@@ -71,6 +71,7 @@ __all__ = [
     "PointCloudMsg",
     "FlowMsg",
     "SyntheticCamera",
+    "FrameDirectorySource",
     "FlowNode",
     "DepthNode",
     "JunctionMaskFlowNode",

@@ -3,14 +3,17 @@ reference's ``runtime/sources.py``).
 
 :class:`SyntheticCamera` renders a procedurally textured scene translating
 at a known metric velocity; the ground truth makes end-to-end velocity
-tests self-checking.  A source can ``run()`` on a thread, publishing
-``ImageMsg`` to a bus topic with host-timebase stamps, or be iterated
-synchronously.  The reference's video-file and frame-directory sources
-read with cv2 and wait for the port's own image reader (ROADMAP module
-item 7); its RealSense source needs ``pyrealsense2``.
+tests self-checking.  :class:`FrameDirectorySource` plays a directory of
+PNG frames in name order, read by the port's own PNG reader.  A source can
+``run()`` on a thread, publishing ``ImageMsg`` to a bus topic with
+host-timebase stamps, or be iterated synchronously.  The reference's
+video-file source decodes with cv2 and its RealSense source needs
+``pyrealsense2``; neither is ported (ROADMAP module item 3 d).
 """
 from __future__ import annotations
 
+import glob
+import os
 import threading
 import time
 from typing import Iterator
@@ -121,3 +124,20 @@ class SyntheticCamera(_BaseSource):
     def frames(self):
         for i in range(self.n_frames):
             yield self.frame_at(i)
+
+
+class FrameDirectorySource(_BaseSource):
+    """The PNG files of ``directory`` matching ``pattern``, in sorted order,
+    as BGR uint8 frames (``utils.png.imread``, what ``cv2.imread``
+    returns)."""
+
+    def __init__(self, directory: str, bus: Bus | None = None, fps: float = 30.0,
+                 pattern: str = "*.png", fx: float = 600.0):
+        super().__init__(bus, fps, fx)
+        self.files = sorted(glob.glob(os.path.join(directory, pattern)))
+
+    def frames(self):
+        from ..utils.png import imread
+
+        for f in self.files:
+            yield imread(f)

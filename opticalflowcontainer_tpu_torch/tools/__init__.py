@@ -1,0 +1,11 @@
+"""Offline tools (the port's copy of the reference's ``tools`` package):
+
+- ``python -m opticalflowcontainer_tpu_torch.tools.run_pair`` -- flow of two
+  PNG stills, written as ``.flo`` and an HSV PNG;
+- ``python -m opticalflowcontainer_tpu_torch.tools.fish_speed`` -- the mean
+  displacement and metric speed of a region of interest from a still pair;
+- ``python -m opticalflowcontainer_tpu_torch.tools.zoo_latency`` -- device
+  ms per frame of each learned family at its reference operating point;
+- ``python -m opticalflowcontainer_tpu_torch.tools.monitor`` -- per-process
+  CPU and RSS sampling to CSV, and the summary of the device-memory logs.
+"""

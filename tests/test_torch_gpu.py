@@ -636,3 +636,70 @@ def test_resize_area_unchanged_by_device(cuda):
         assert torch.equal(on_card.cpu(), resize_area(img, size))
         m = img > 128
         assert torch.equal(resize_nearest(m.to(cuda), size).cpu(), resize_nearest(m, size))
+
+
+def _eval_pairs():
+    from opticalflowcontainer_tpu_torch.eval.datasets import synthetic_eval_pairs
+
+    return synthetic_eval_pairs(2, 128, 160)
+
+
+def test_eval_farneback_runner_on_card_matches_cpu(cuda):
+    """run_eval's farneback runner on two synthetic pairs at 128 x 160: the
+    card (K1, K2) against the CPU, mean 1e-3 px and max 1e-2 px (chip_smoke
+    phase 4's bars), and K1 and K2 launched (levels + 1) x 3 iterations
+    times a pair."""
+    from opticalflowcontainer_tpu_torch.eval.run_eval import _make_method
+
+    card = _make_method("farneback", None, False, device=cuda)
+    cpu = _make_method("farneback", None, False, device="cpu")
+    per_pair = (fb._num_levels(128, 160, 3, 0.5) + 1) * 3
+    for img1, img2, _, _ in _eval_pairs():
+        k1.farneback_update.launches = k2.blur_solve.launches = 0
+        on_card = card(img1, img2)
+        assert k1.farneback_update.launches == k2.blur_solve.launches == per_pair
+        d = np.abs(on_card - cpu(img1, img2))
+        assert d.mean() <= 1e-3 and d.max() <= 1e-2, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("method,launches", [("pwcnet", (4, 5)), ("neuflow", (2, 2))])
+def test_eval_model_runner_on_card_matches_cpu(method, launches, cuda):
+    """run_eval's pwcnet and neuflow runners (the packaged npz, or seeded
+    weights where it is absent) on two synthetic pairs at 128 x 160: the
+    card (K3, K4; cuDNN without TF32) against the CPU, bars relative to the
+    flow's RMS as chip_smoke's, mean 1e-3 and max 5e-2, and the K3 / K4
+    launches a pair."""
+    from opticalflowcontainer_tpu_torch.eval.run_eval import _make_method
+
+    card = _make_method(method, None, False, device=cuda)
+    cpu = _make_method(method, None, False, device="cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for img1, img2, _, _ in _eval_pairs():
+            k3.warp_bilinear.launches = k4.local_correlation.launches = 0
+            on_card = card(img1, img2)
+            assert (k3.warp_bilinear.launches, k4.local_correlation.launches) == launches
+            on_cpu = cpu(img1, img2)
+            rms = np.sqrt((on_cpu ** 2).mean())
+            d = np.abs(on_card - on_cpu)
+            assert d.mean() <= 1e-3 * rms and d.max() <= 5e-2 * rms, (d.mean(), d.max(), rms)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_eval_time_device_on_card(cuda):
+    """--time-device on the card: a CUDA-graph or CUDA-event time, named."""
+    import contextlib
+    import io
+    import json
+
+    from opticalflowcontainer_tpu_torch.eval import run_eval
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert run_eval.main(["--method", "farneback,neuflow", "--n", "1",
+                              "--quick", "--time-device"]) == 0
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert [r["timer"] in ("cuda_graph", "cuda_events") for r in rows] == [True, True]
+    assert all(r["device_ms_per_frame"] > 0 for r in rows)
