@@ -98,7 +98,18 @@ seconds:
    a pair; seeded weights where the npz is absent, said on its own line),
    --time-device for farneback and pwcnet, run_pair and fish_speed on two
    PNGs of a known subpixel shift written by the port's imwrite (the .flo's
-   interior mean u within 0.05 px of it), and zoo_latency --quick.
+   interior mean u within 0.05 px of it), and zoo_latency --quick;
+23. training at train_flow's defaults (B=8, 96x128, --iters 8): every
+   PWC-Net parameter's gradient through the kernels (K3/K4 forward, their
+   plain versions' autograd backward) against the plain path, cuDNN in
+   fp32 (at 128x192: PWC-Net's sizes are multiples of 64); each of the
+   seven families trained for 30 steps through
+   train_flow.main from its seeded init (finite losses, K3/K4 launches a
+   step, steps/s, peak memory, a checkpoint, the exported npz loaded back
+   and served at 640x480); RAFT-small's loss on a fixed batch falling
+   below 0.7x in 8 steps (tests/test_training.py's recipe); PWC-Net's and
+   LFN3's forward and backward device time and the share of K3/K4's
+   plain backward in it.
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
@@ -2525,6 +2536,293 @@ def eval_phase(torch, dev, H=480, W=640, n=32, shift=1.37) -> dict:
     return by_path
 
 
+# the training size of each family: train_flow's default 96x128, PWC-Net
+# at 128x192 (its sizes are multiples of 64; the reference trained it there)
+TRAIN_SIZE = {"pwcnet": (128, 192)}
+# K3 and K4 launches per training step (one forward) of the families that
+# run them, at train_flow's defaults (NeuFlow-v2 refines --iters 8 times)
+TRAIN_LAUNCHES = {"pwcnet": (4, 5), "liteflownet": (14, 5),
+                  "liteflownet3": (13, 6), "neuflow_lite": (2, 2),
+                  "neuflow_v2": (9, 9), "raft_small": (0, 0),
+                  "raft_large": (0, 0)}
+# kernel path vs plain path, every parameter's gradient at PWC-Net's
+# training shapes: the backward is the same plain autograd on both paths,
+# at forward activations that differ by K4's fp32 summation order (~1e-7
+# relative).  Where that moves a leaky ReLU across its kink or a warp
+# coordinate across a whole pixel, the gradient of that element jumps, so
+# a tensor of small gradients can move by 1e-3 of its own scale (PWC-Net's
+# decoder3.upflow moved 1.5e-3 on an H100).  The bars are therefore on
+# the model's scale: each tensor's largest difference within 1e-4 of the
+# largest gradient of the model, and the whole gradient within 1e-4 in L2
+TRAIN_GRAD_REL = 1e-4
+
+
+def train_batch(torch, dev, B=8, H=96, W=128, seed=23) -> dict:
+    """One of train_flow's batches at its defaults, on the card."""
+    from opticalflowcontainer_tpu_torch.parallel.train import batch_to_device
+    from opticalflowcontainer_tpu_torch.tools.train_flow import make_affine_batch
+
+    return batch_to_device(make_affine_batch(np.random.default_rng(seed), B, H, W), dev)
+
+
+def trainer_init(torch, name: str, dev, seed=23):
+    """Family ``name`` as train_flow initialises it (flax's init; the
+    pyramid families' 1.55 rescale), on the card, in training mode."""
+    from opticalflowcontainer_tpu_torch.models.common import flax_init
+    from opticalflowcontainer_tpu_torch.tools import train_flow
+
+    model = flax_init(train_flow.build_model(name), torch.Generator().manual_seed(seed))
+    if name in train_flow.PYRAMID_MODELS:
+        train_flow._kaiming_rescale(model)
+    return model.to(dev).train()
+
+
+@contextlib.contextmanager
+def exact_convolutions(torch):
+    """cuDNN in fp32 (no TF32), deterministic algorithms, for the block:
+    the two paths' gradients then differ by the kernels alone."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = False, True, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
+
+
+def train_grads(torch, model, loss_fn, batch):
+    loss = loss_fn(model, batch)
+    params = [p for p in model.parameters() if p.requires_grad]
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def grad_gap(torch, got, want) -> tuple[float, float]:
+    """(the largest |got - want| of any tensor over the largest |want| of
+    the model, |got - want| over |want| as one vector in L2)."""
+    scale = max(float(w.abs().max()) for w in want)
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    diff = sum(float((g - w).double().square().sum()) for g, w in zip(got, want))
+    norm = sum(float(w.double().square().sum()) for w in want)
+    return worst / scale, (diff / norm) ** 0.5
+
+
+def backward_split(torch, model, loss_fn, batch) -> dict | None:
+    """Device ms of one training step's forward and backward (profiler busy
+    time: the forward alone, then forward and backward), and of K3's and
+    K4's plain backward inside it (the profiler ranges around their
+    ``plain_vjp``).  None when the profiler saw no device time."""
+    from opticalflowcontainer_tpu_torch.ops import correlation as k4
+    from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
+
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def forward():
+        with torch.no_grad():
+            loss_fn(model, batch)
+
+    def step():
+        torch.autograd.grad(loss_fn(model, batch), params)
+
+    fwd = split_by_ranges(torch, forward, [], {})
+    patches = [(k3, "plain_vjp", "train::k3_plain_backward"),
+               (k4, "plain_vjp", "train::k4_plain_backward")]
+    both = split_by_ranges(torch, step, patches, {
+        "k3_backward": "train::k3_plain_backward",
+        "k4_backward": "train::k4_plain_backward"})
+    if fwd is None or both is None:
+        return None
+    back = both["busy"] - fwd["busy"]
+    plain = both["k3_backward"] + both["k4_backward"]
+    return {"forward_ms": fwd["busy"], "backward_ms": back,
+            "k3_plain_backward_ms": both["k3_backward"],
+            "k4_plain_backward_ms": both["k4_backward"],
+            "plain_share_of_backward": plain / back if back > 0 else None}
+
+
+def train_step_events(torch, model, loss_fn, batch, reps=5) -> tuple[float, float]:
+    """ms of the forward and of the backward of one step, CUDA events
+    around each (the device's waits on the host included), mean of
+    ``reps`` after two warm-up steps."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    fwd, bwd = [], []
+    for i in range(reps + 2):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss = loss_fn(model, batch)
+        e[1].record()
+        torch.autograd.grad(loss, params)
+        e[2].record()
+        e[2].synchronize()
+        if i >= 2:
+            fwd.append(e[0].elapsed_time(e[1]))
+            bwd.append(e[1].elapsed_time(e[2]))
+    return float(np.mean(fwd)), float(np.mean(bwd))
+
+
+def train_log(line: str) -> tuple[int, float, float] | None:
+    """(step, loss, steps/s) of one of train_flow's step lines."""
+    parts = line.split()
+    if len(parts) == 8 and parts[0] == "step" and parts[7] == "steps/s":
+        return int(parts[1]), float(parts[3]), float(parts[6])
+    return None
+
+
+def training_phase(torch, dev, steps=30, seed=23) -> dict:
+    """Phase 23, training on the card at train_flow's defaults (B=8,
+    96x128, --iters 8; PWC-Net at 128x192): K3/K4's backward (kernel path
+    vs plain path, every PWC-Net parameter's gradient), each family trained
+    through train_flow.main from its seeded init, the export served at
+    640x480, RAFT-small's loss falling on a fixed batch, and the
+    timings."""
+    import io
+    import tempfile
+
+    from opticalflowcontainer_tpu_torch.models import convert
+    from opticalflowcontainer_tpu_torch.parallel import checkpoint
+    from opticalflowcontainer_tpu_torch.parallel.train import make_train_state, train_step
+    from opticalflowcontainer_tpu_torch.tools import train_flow
+
+    card_name = card_line()
+    by_path = {}
+    batches = {"pwcnet": train_batch(torch, dev, 8, *TRAIN_SIZE["pwcnet"], seed=seed),
+               "liteflownet3": train_batch(torch, dev, seed=seed)}
+    batch = batches["pwcnet"]
+
+    # K3 and K4 backward at PWC-Net's training shapes
+    model = trainer_init(torch, "pwcnet", dev, seed)
+    loss_fn = train_flow.make_loss("pwcnet")
+    with exact_convolutions(torch):
+        reset_counts()
+        loss_k, grads_k = train_grads(torch, model, loss_fn, batch)
+        counts = kernel_counts()
+        with plain_kernels():
+            loss_p, grads_p = train_grads(torch, model, loss_fn, batch)
+            _, grads_q = train_grads(torch, model, loss_fn, batch)
+    worst, l2 = grad_gap(torch, grads_k, grads_p)
+    repeat = grad_gap(torch, grads_q, grads_p)
+    own = max(float((gk - gp).abs().max() / gp.abs().max()) for gk, gp in zip(grads_k, grads_p))
+    dl = abs(float(loss_k) - float(loss_p))
+    print(f"  PWC-Net training loss at B=8, 128x192: kernels {float(loss_k):.8f}, "
+          f"plain {float(loss_p):.8f}; {len(grads_k)} gradients: largest difference "
+          f"{worst:.3e} of the model's largest gradient, {l2:.3e} in L2 (bars "
+          f"{TRAIN_GRAD_REL}), {own:.3e} of a tensor's own largest; the plain path "
+          f"against itself {repeat[0]:.3e}, {repeat[1]:.3e}; launches {counts}")
+    require(counts["warp_bilinear"] == 4 and counts["local_correlation"] == 5,
+            "the kernel path's step launches K3 4 and K4 5 times")
+    require(dl <= 1e-5 * abs(float(loss_p)), "the kernel path's loss within 1e-5 of the plain")
+    require(worst <= TRAIN_GRAD_REL and l2 <= TRAIN_GRAD_REL,
+            "the gradients within the bars of the plain path's")
+
+    # the host's part of a step: one of train_flow's batches
+    from opticalflowcontainer_tpu_torch.tools.train_flow import make_affine_batch
+
+    rng = np.random.default_rng(seed)
+    for kw in ({}, {"mesh_prob": 1.0}):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            make_affine_batch(rng, 8, 96, 128, **kw)
+        print(f"  make_affine_batch at B=8, 96x128 {kw or ''}: "
+              f"{(time.perf_counter() - t0) / 5 * 1e3:.1f} ms on the host")
+
+    # each family through train_flow.main, exported, loaded, served
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (n3, n4) in TRAIN_LAUNCHES.items():
+            out = os.path.join(tmp, f"{name}.npz")
+            H, W = TRAIN_SIZE.get(name, (96, 128))
+            argv = ["--model", name, "--steps", str(steps), "--log-every", "10",
+                    "--height", str(H), "--width", str(W),
+                    "--ckpt-every", str(steps), "--ckpt-dir",
+                    os.path.join(tmp, f"ckpt_{name}"), "--out", out]
+            log = io.StringIO()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                require(train_flow.main(argv) == 0, f"train_flow {name} returns 0")
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            rows = [r for r in map(train_log, log.getvalue().splitlines()) if r]
+            losses = [loss for _, loss, _ in rows]
+            rate = rows[-1][2]
+            print(f"  train_flow --model {name}: {steps} steps at B=8, {H}x{W} in "
+                  f"{wall:.2f} s; losses {losses}; {rate:.2f} steps/s; peak "
+                  f"{peak:.0f} MiB; launches {counts} ({card_name})")
+            require(rows[-1][0] == steps and all(np.isfinite(losses)),
+                    f"{name}: a finite loss at every logged step")
+            require(counts["warp_bilinear"] == n3 * steps
+                    and counts["local_correlation"] == n4 * steps
+                    and counts["farneback_update"] == counts["blur_solve"] == 0,
+                    f"{name}: K3 {n3} and K4 {n4} launches a step, no K1/K2")
+            require(checkpoint.latest_checkpoint(os.path.join(tmp, f"ckpt_{name}"))
+                    is not None, f"{name}: a checkpoint")
+            by_path[f"train_{name}"] = counts
+            net = train_flow.build_model(name)
+            net.load_state_dict(convert.flax_to_torch_state_dict(
+                convert.load_flat_npz(out), net))
+            served = serve_pair(torch, name, net.to(dev).eval())
+            print(f"  {name} export served at 640x480: flow {tuple(served.shape)}, "
+                  f"|flow| max {float(served.abs().max()):.3f} px")
+            require(tuple(served.shape) == (480, 640, 2)
+                    and bool(torch.isfinite(served).all()),
+                    f"{name}: the loaded export serves a finite 640x480 flow")
+
+    # the recipe of tests/test_training.py::test_raft_training_loss_decreases
+    from opticalflowcontainer_tpu_torch.models import RAFTSmall
+
+    state = make_train_state(RAFTSmall().to(dev), torch.Generator().manual_seed(0), lr=1e-3)
+    fixed = shifted_batch(np.random.default_rng(0))
+    losses = []
+    for _ in range(8):
+        state, loss = train_step(state, fixed, iters=2)
+        losses.append(float(loss))
+    print(f"  RAFT-small train_step x8 on a fixed batch: losses {losses}")
+    require(np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0] and state.step == 8,
+            "RAFT-small's loss after 8 steps below 0.7 of the first")
+
+    # forward / backward device time and the plain backward's share
+    for name, batch in batches.items():
+        model = trainer_init(torch, name, dev, seed)
+        loss_fn = train_flow.make_loss(name)
+        fwd_ms, bwd_ms = train_step_events(torch, model, loss_fn, batch)
+        split = backward_split(torch, model, loss_fn, batch)
+        H, W = batch["img1"].shape[-2:]
+        print(f"  {name} training step at B=8, {H}x{W}: forward {fwd_ms:.3f} ms, "
+              f"backward {bwd_ms:.3f} ms by events; device busy "
+              f"{json.dumps(split)} ({card_name})")
+    return by_path
+
+
+def shifted_batch(rng, B=2, H=32, W=32, max_shift=3) -> dict:
+    """tests/test_training.py's batch: a blurred random texture shifted by
+    a whole number of px in x (the port's GaussianBlur in place of cv2's)."""
+    from opticalflowcontainer_tpu_torch.core.affine import gaussian_blur
+
+    img1 = np.zeros((B, H, W, 3), np.float32)
+    img2 = np.zeros((B, H, W, 3), np.float32)
+    flow = np.zeros((B, H, W, 2), np.float32)
+    for i in range(B):
+        base = gaussian_blur(rng.uniform(0, 1, (H + 16, W + 16)).astype(np.float32), 1.5)
+        dx = int(rng.integers(-max_shift, max_shift + 1))
+        img1[i] = np.repeat(base[8:8 + H, 8:8 + W, None], 3, -1)
+        img2[i] = np.repeat(base[8:8 + H, 8 - dx:8 + W - dx, None], 3, -1)
+        flow[i, ..., 0] = dx
+    return {"img1": img1, "img2": img2, "flow": flow}
+
+
+def serve_pair(torch, name: str, model) -> "torch.Tensor":
+    """The family's estimate of one 640x480 pair (image_pairs' texture)."""
+    import importlib
+
+    module = {"raft_small": "raft", "raft_large": "raft", "neuflow_lite": "neuflow",
+              "neuflow_v2": "neuflow_v2", "pwcnet": "pwcnet",
+              "liteflownet3": "liteflownet3", "liteflownet": "liteflownet"}[name]
+    estimate = importlib.import_module(
+        f"opticalflowcontainer_tpu_torch.models.{module}").estimate
+    x1, x2 = image_pairs(torch, 480, 640, 1, next(model.parameters()).device)
+    return estimate(model, x1[0], x2[0])
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2600,6 +2898,8 @@ def main() -> int:
         by_path.update(bf16_phase(torch, dev))
     with phase("22 offline eval and tools (run_eval, run_pair, fish_speed, zoo_latency)"):
         by_path.update(eval_phase(torch, dev))
+    with phase("23 training (K3/K4 backward, train_flow.main for seven families)"):
+        by_path.update(training_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

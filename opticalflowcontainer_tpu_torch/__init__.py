@@ -3,7 +3,8 @@
 The JAX package beside this one stays the reference; this package keeps its
 own copy of everything it needs and imports neither JAX nor cv2.  Layout
 mirrors the reference (``core``, ``ops``, ``classical``, ``models``,
-``runtime``) so each module's counterpart is found under the same name.
+``runtime``, ``eval``, ``parallel``, ``tools``) so each module's
+counterpart is found under the same name.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU request they raise.  The reference's four

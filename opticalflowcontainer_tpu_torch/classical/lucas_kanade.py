@@ -22,13 +22,12 @@ device.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import cached_tensors, resolve_device
 from ..core.filters import scharr_deriv
 from ..core.pyramid import gaussian_pyramid
 
@@ -39,7 +38,7 @@ class LKResult(NamedTuple):
     err: torch.Tensor  # [N] fp32: mean absolute window residual (cv2-style)
 
 
-@functools.lru_cache(maxsize=16)
+@cached_tensors(16)
 def _window_tables(win: int, device: torch.device):
     """On ``device``: the offsets -r..r [win] of a window's taps from its
     centre (fp32), and the steps (0, 1) [2, 1, 1] to a sample's second

@@ -83,6 +83,22 @@ def capabilities() -> dict:
     return report
 
 
+def cached_tensors(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a function that builds constant
+    tensors, which builds them outside inference mode.  The cache hands the
+    same tensors to every later caller: one made under
+    ``torch.inference_mode()`` (a serving call) could not be saved for
+    backward by a later training call."""
+    def wrap(fn):
+        @functools.lru_cache(maxsize=maxsize)
+        @functools.wraps(fn)
+        def cached(*args, **kwargs):
+            with torch.inference_mode(False):
+                return fn(*args, **kwargs)
+        return cached
+    return wrap
+
+
 @functools.lru_cache(maxsize=8)
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of CUDA device ``device_index``."""

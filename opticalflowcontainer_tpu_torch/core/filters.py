@@ -17,10 +17,10 @@ form, in fp32 throughout (no convolution op, so no TF32 on the card).
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from .device import cached_tensors
 
 _BORDER_TO_NP = {"reflect101": "reflect", "replicate": "edge"}
 
@@ -47,7 +47,7 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return g / g.sum()
 
 
-@functools.lru_cache(maxsize=256)
+@cached_tensors(256)
 def _pad_index(n: int, p: int, border: str, device: torch.device) -> torch.Tensor:
     """Source index of each padded position (numpy's pad modes, so any pad
     width behaves as the reference's ``jnp.pad``), kept on ``device``: an

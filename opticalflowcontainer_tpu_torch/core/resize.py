@@ -20,8 +20,10 @@ import math
 import numpy as np
 import torch
 
+from .device import cached_tensors
 
-@functools.lru_cache(maxsize=256)
+
+@cached_tensors(256)
 def _taps(src: int, dst: int, device: torch.device, align_corners: bool = False):
     """(lower index, upper index, upper weight) of each output position,
     kept on ``device``: an upload per call would synchronize the stream."""

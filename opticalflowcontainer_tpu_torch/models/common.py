@@ -23,6 +23,7 @@ Layout: NCHW activations, torch's OIHW / IOHW weights.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import numpy as np
@@ -131,6 +132,65 @@ def upsample_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     patches = unfold(flow.float() * 8.0, 3)  # [B, 2, 9, Hc, Wc]
     up = (mask[:, None] * patches[:, :, None, None]).sum(4)  # [B, 2, 8, 8, Hc, Wc]
     return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, 8 * Hc, 8 * Wc)
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# truncated-normal variance scaling divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Unit normal draws truncated to [-2, 2] (float64, on the CPU), by the
+    inverse CDF as ``jax.random.truncated_normal`` draws them."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    x = math.sqrt(2) * torch.erfinv(lo + u * (hi - lo))
+    return x.clamp(-2.0, 2.0)
+
+
+def flax_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``model``'s parameters as the reference's ``model.init``
+    does, drawing from ``generator`` (a CPU generator; the draws are copied
+    to the parameters' device).  In place; returns ``model``.
+
+    - Convolution, transposed convolution and linear weights: flax's
+      ``lecun_normal``, ``variance_scaling(1.0, "fan_in",
+      "truncated_normal")``: std sqrt(1 / fan_in) / 0.8796 of a normal
+      truncated at two std.  The fan-in is flax's for the kernel each
+      module holds: kH * kW * Cin / groups for a convolution and for the
+      reference's transposed one (``models/common.py`` ``Deconv``), the
+      input width for a linear layer.
+    - Biases 0; LayerNorm scale 1, bias 0.
+    - A module's own constants by its ``init_constants`` method
+      (NeuFlowLite's temperature 10 and gate 0).
+
+    The numbers differ from JAX's PRNG draws; the distribution is the
+    same.  Raises when a parameter is left uninitialised."""
+    done = set()
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = module.weight
+                if isinstance(module, nn.ConvTranspose2d):
+                    fan_in = w.shape[0] // module.groups * w[0, 0].numel()
+                else:
+                    fan_in = w[0].numel()
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                w.copy_(_truncated_normal(w.shape, generator) * std)
+                done.add(w)
+            elif isinstance(module, nn.LayerNorm):
+                module.weight.fill_(1.0)
+                done.add(module.weight)
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                                   nn.LayerNorm)) and module.bias is not None:
+                module.bias.zero_()
+                done.add(module.bias)
+            if hasattr(module, "init_constants"):
+                done.update(module.init_constants())
+    left = [name for name, p in model.named_parameters() if p not in done]
+    if left:
+        raise ValueError(f"flax_init: no initialiser for {left[:10]}")
+    return model
 
 
 def _pad_to(x: int, mult: int) -> int:

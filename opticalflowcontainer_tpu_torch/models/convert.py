@@ -71,17 +71,38 @@ def deconv_weight(kernel: np.ndarray, groups: int = 1) -> np.ndarray:
     return k[:, :, ::-1, ::-1]
 
 
-def _flax_key(name: str, module: nn.Module, pname: str) -> tuple[str, object]:
+def flax_conv_kernel(weight: np.ndarray) -> np.ndarray:
+    """torch OIHW -> the flax HWIO kernel (the inverse of
+    :func:`conv_weight`)."""
+    return np.transpose(weight, (2, 3, 1, 0))
+
+
+def flax_deconv_kernel(weight: np.ndarray, groups: int = 1) -> np.ndarray:
+    """torch ConvTranspose2d's (Cin, Cout/g, kH, kW) -> the reference
+    Deconv's flipped HWIO kernel [kH, kW, Cin/g, Cout] (its
+    ``convert_torch_deconv``; the inverse of :func:`deconv_weight`)."""
+    w = weight[:, :, ::-1, ::-1]
+    cin, cog, kh, kw = w.shape
+    k = w.reshape(groups, cin // groups, cog, kh, kw)
+    return np.transpose(k, (3, 4, 1, 0, 2)).reshape(kh, kw, cin // groups,
+                                                    groups * cog)
+
+
+def _flax_key(name: str, module: nn.Module, pname: str,
+              to_flax: bool = False) -> tuple[str, object]:
     """The flax key of parameter ``pname`` of the module at ``name`` (empty
-    for the root) and the map of its array to the parameter's layout."""
+    for the root) and the map of its array to the parameter's layout, or
+    with ``to_flax`` the map back to the flax layout."""
     path = name.split(".") if name else []
     if isinstance(module, Deconv):
-        prefix, weight_map = path, functools.partial(deconv_weight,
-                                                     groups=module.groups)
+        prefix, weight_map = path, functools.partial(
+            flax_deconv_kernel if to_flax else deconv_weight,
+            groups=module.groups)
     elif isinstance(module, AxisConv):
-        prefix, weight_map = path, conv_weight
+        prefix, weight_map = path, flax_conv_kernel if to_flax else conv_weight
     elif isinstance(module, Conv):
-        prefix, weight_map = path + ["Conv_0"], conv_weight
+        prefix = path + ["Conv_0"]
+        weight_map = flax_conv_kernel if to_flax else conv_weight
     elif isinstance(module, nn.Linear):
         prefix, weight_map = path, np.transpose
     elif isinstance(module, nn.LayerNorm):
@@ -123,6 +144,36 @@ def flax_to_torch_state_dict(flat: dict[str, np.ndarray],
     if unused:
         raise ValueError(f"npz keys left unused: {unused[:10]}")
     return out
+
+
+def torch_to_flax_flat(model: nn.Module) -> dict[str, np.ndarray]:
+    """The flat flax parameters (``a/b/c`` keys, float32 arrays in flax's
+    layouts) of ``model``: the inverse of :func:`flax_to_torch_state_dict`,
+    the npz that the reference's ``tools/train_flow.py`` exports and both
+    packages' loaders read.  Raises on a module parameter that maps to no
+    key of its own, as the forward map raises on one left unfilled."""
+    out: dict[str, np.ndarray] = {}
+    for name, module in model.named_modules():
+        for pname, param in module.named_parameters(recurse=False):
+            key, to_flax = _flax_key(name, module, pname, to_flax=True)
+            if key in out:
+                raise ValueError(f"{name}.{pname}: flax key {key!r} is taken "
+                                 f"by another parameter")
+            arr = param.detach().float().cpu().numpy()
+            out[key] = np.ascontiguousarray(arr if to_flax is None
+                                            else to_flax(arr))
+    unmapped = sorted(set(model.state_dict()) - {
+        f"{n}.{p}" if n else p for n, m in model.named_modules()
+        for p, _ in m.named_parameters(recurse=False)})
+    if unmapped:
+        raise ValueError(f"state entries with no flax key: {unmapped[:10]}")
+    return out
+
+
+def save_flat_npz(model: nn.Module, path) -> None:
+    """Write ``model``'s parameters as the flat npz at ``path`` (the
+    reference's ``train_flow`` export)."""
+    np.savez(path, **torch_to_flax_flat(model))
 
 
 def _load_synth(name: str, model: nn.Module, device) -> nn.Module | None:

@@ -161,9 +161,11 @@ class Regularization(nn.Module):
 
     def features(self, img1, img2, feat1, flow) -> torch.Tensor:
         """The output of the last ``main`` conv, which the distance (and in
-        LFN3 the confidence) heads read."""
-        warped = in_fp32(self.warp, img2, flow * _FLOW_SCALE[self.level])
-        diff = ((img1 - warped) ** 2).sum(1, keepdim=True).sqrt()
+        LFN3 the confidence) heads read.  The photometric difference passes
+        no gradient, as the reference's ``stop_gradient``."""
+        with torch.no_grad():
+            warped = in_fp32(self.warp, img2, flow * _FLOW_SCALE[self.level])
+            diff = ((img1 - warped) ** 2).sum(1, keepdim=True).sqrt()
         if self.level < 5:
             feat1 = leaky(self.feat(feat1))
         # the flow's mean over each image's pixels, never over the batch
@@ -204,7 +206,8 @@ def image_pyramid(img: torch.Tensor, feats: list[torch.Tensor]) -> list[torch.Te
 
 class LiteFlowNet(nn.Module):
     """(img1, img2) [B, 3, H, W] BGR in [0, 1], H and W multiples of 32 ->
-    flow [B, 2, H/2, W/2] x 20 (level-2 resolution)."""
+    flow [B, 2, H/2, W/2] x 20 (level-2 resolution), and with
+    ``return_pyramid`` the per-level flows."""
 
     def __init__(self):
         super().__init__()
@@ -220,7 +223,10 @@ class LiteFlowNet(nn.Module):
             self.add_module(f"subpixel{level}", Subpixel(level))
             self.add_module(f"regularization{level}", Regularization(level))
 
-    def forward(self, img1, img2):
+    def forward(self, img1, img2, return_pyramid: bool = False):
+        """``return_pyramid=True`` also returns the flow of each level
+        {6: ..., 2: ...} in the net's /20 units at the level's own
+        resolution (the reference's training supervision)."""
         img1 = img1 - self.mean_one
         img2 = img2 - self.mean_two
         B = img1.shape[0]
@@ -231,13 +237,15 @@ class LiteFlowNet(nn.Module):
         im1 = image_pyramid(img1, feats1)
         im2 = image_pyramid(img2, feats2)
         flow = None
+        pyramid = {}
         for lvl in (6, 5, 4, 3, 2):
             i = lvl - 1
             flow = getattr(self, f"matching{lvl}")(feats1[i], feats2[i], flow)
             flow = getattr(self, f"subpixel{lvl}")(feats1[i], feats2[i], flow)
             flow = getattr(self, f"regularization{lvl}")(im1[i], im2[i],
                                                          feats1[i], flow)
-        return flow * 20.0
+            pyramid[lvl] = flow
+        return (flow * 20.0, pyramid) if return_pyramid else flow * 20.0
 
 
 @torch.inference_mode()

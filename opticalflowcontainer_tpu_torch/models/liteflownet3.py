@@ -131,7 +131,8 @@ class Regularization(_Regularization):
 
 class LiteFlowNet3(nn.Module):
     """(img1, img2) [B, 3, H, W] BGR in [0, 1], H and W multiples of 32 ->
-    flow [B, 2, H/4, W/4] x 20 (level-3 resolution)."""
+    flow [B, 2, H/4, W/4] x 20 (level-3 resolution), and with
+    ``return_pyramid`` the per-level flows."""
 
     def __init__(self):
         super().__init__()
@@ -141,7 +142,10 @@ class LiteFlowNet3(nn.Module):
             self.add_module(f"subpixel{level}", Subpixel(level))
             self.add_module(f"regularization{level}", Regularization(level))
 
-    def forward(self, img1, img2):
+    def forward(self, img1, img2, return_pyramid: bool = False):
+        """``return_pyramid=True`` also returns the flow of each level
+        {6: ..., 3: ...} in the net's /20 units at the level's own
+        resolution (the reference's training supervision)."""
         # each image's own mean over its pixels, never over the batch
         img1 = img1 - img1.mean((2, 3), keepdim=True)
         img2 = img2 - img2.mean((2, 3), keepdim=True)
@@ -152,6 +156,7 @@ class LiteFlowNet3(nn.Module):
         im1 = image_pyramid(img1, feats1)
         im2 = image_pyramid(img2, feats2)
         flow = conf = None
+        pyramid = {}
         for lvl in (6, 5, 4, 3):
             i = lvl - 1
             flow, conf = getattr(self, f"matching{lvl}")(feats1[i], feats2[i],
@@ -161,7 +166,8 @@ class LiteFlowNet3(nn.Module):
                 im1[i], im2[i], feats1[i], flow)
             if rconf is not None:
                 conf = rconf
-        return flow * 20.0
+            pyramid[lvl] = flow
+        return (flow * 20.0, pyramid) if return_pyramid else flow * 20.0
 
 
 @torch.inference_mode()

@@ -71,12 +71,20 @@ class NeuFlowLite(nn.Module):
             cin = ch
         self.proj1 = Conv(96, 96, kernel=1, padding=0)
         self.proj2 = Conv(96, 96, kernel=1, padding=0)
-        # the flax init: temperature 10, gate 0 (training phases matching in)
-        self.match_temp = nn.Parameter(torch.full((1,), 10.0))
-        self.matching_gate = nn.Parameter(torch.zeros(1))
+        self.match_temp = nn.Parameter(torch.empty(1))
+        self.matching_gate = nn.Parameter(torch.empty(1))
+        self.init_constants()
         self.ref0 = Conv(_CORR_CH + 64 + 2, 96)
         self.ref1 = Conv(96, 64)
         self.ref2 = Conv(64, 2)
+
+    @torch.no_grad()
+    def init_constants(self) -> list[nn.Parameter]:
+        """The flax init of the matching constants: temperature 10, gate 0
+        (training phases the matching in).  Returns them."""
+        self.match_temp.fill_(10.0)
+        self.matching_gate.zero_()
+        return [self.match_temp, self.matching_gate]
 
     def features(self, x: torch.Tensor) -> list[torch.Tensor]:
         """The trunk's four stages of ``x`` in [0, 1]."""
@@ -112,7 +120,10 @@ class NeuFlowLite(nn.Module):
         x = leaky(self.ref1(x))
         return flow + self.ref2(x).float()
 
-    def forward(self, img1, img2):
+    def forward(self, img1, img2, return_aux: bool = False):
+        """``return_aux=True`` also returns the matching stage's flow
+        before refinement, upsampled to the input's size in pixels (the
+        reference's auxiliary training target)."""
         with fp32_convolutions():
             B = img1.shape[0]
             # both frames through the trunk as one batch (norms per image)
@@ -122,7 +133,11 @@ class NeuFlowLite(nn.Module):
             flow = resize_bilinear(flow16, tuple(f8.shape[-2:])) * 2.0
             for _ in range(self.iters):
                 flow = self.refine(f8[:B], f8[B:], flow)
-            return resize_bilinear(flow, tuple(img1.shape[-2:])) * 8.0
+            size = tuple(img1.shape[-2:])
+            out = resize_bilinear(flow, size) * 8.0
+            if return_aux:
+                return out, resize_bilinear(flow16, size) * 16.0
+            return out
 
 
 @torch.inference_mode()

@@ -30,7 +30,6 @@ checkpoint of the published model onto :class:`NeuFlowV2`.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import numpy as np
@@ -38,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.device import cached_tensors
 from ..core.resize import resize_bilinear
 from ..core.warp import warp_bilinear
 from ..ops.allpairs import all_pairs_correlation
@@ -109,7 +109,7 @@ def _pos_embed_2d(H: int, W: int, dim: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@cached_tensors(32)
 def _pos_embed(H: int, W: int, dim: int, device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
     """:func:`_pos_embed_2d` as a [dim, H, W] tensor kept on ``device``: an
@@ -251,11 +251,15 @@ class NeuFlowV2(nn.Module):
         self.refine8 = RefineBlock(cfg.hidden, cfg.dim_s8, cfg.corr_radius)
         self.up = ConvexUpsample(cfg.hidden)
 
-    def forward(self, img1, img2, iters_s8: int | None = None):
+    def forward(self, img1, img2, iters_s8: int | None = None,
+                return_aux: bool = False):
+        """``return_aux=True`` also returns the refined 1/16 matching flow
+        upsampled to the input's size in pixels (the reference's auxiliary
+        training target)."""
         with fp32_convolutions():
-            return self._forward(img1, img2, iters_s8)
+            return self._forward(img1, img2, iters_s8, return_aux)
 
-    def _forward(self, img1, img2, iters_s8):
+    def _forward(self, img1, img2, iters_s8, return_aux):
         cfg = self.config
         B = img1.shape[0]
         # both frames through the backbone as one batch (norms per image)
@@ -273,7 +277,10 @@ class NeuFlowV2(nn.Module):
         # an explicit iters_s8=0 stays 0
         for _ in range(cfg.iters_s8 if iters_s8 is None else iters_s8):
             h8, flow8 = self.refine8(h8, f1_8, f2_8, flow8)
-        return self.up(flow8, h8)
+        out = self.up(flow8, h8)
+        if return_aux:
+            return out, resize_bilinear(flow16, tuple(img1.shape[-2:])) * 16.0
+        return out
 
 
 @torch.inference_mode()

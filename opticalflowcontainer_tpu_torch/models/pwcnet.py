@@ -111,7 +111,8 @@ class Refiner(nn.Module):
 
 class PWCNet(nn.Module):
     """(img1, img2) [B, 3, H, W] in [0, 1], H and W multiples of 64 ->
-    flow [B, 2, H/4, W/4] in full-resolution pixels."""
+    flow [B, 2, H/4, W/4] in full-resolution pixels (and with
+    ``return_pyramid`` the per-level flows)."""
 
     def __init__(self):
         super().__init__()
@@ -120,16 +121,24 @@ class PWCNet(nn.Module):
             self.add_module(f"decoder{level}", Decoder(level))
         self.refiner = Refiner()
 
-    def forward(self, img1, img2):
+    def forward(self, img1, img2, return_pyramid: bool = False):
+        """``return_pyramid=True`` also returns the flow of each level
+        {6: ..., 2: ...} in the net's /20 units at the level's own
+        resolution, level 2 after the refiner (the reference's training
+        supervision)."""
         B = img1.shape[0]
         # both frames through the extractor in one batch
         feats = self.extractor(torch.cat([img1, img2], 0))
         prev = None
+        pyramid = {}
         for level in (6, 5, 4, 3, 2):
             f = feats[level - 1]
             prev = getattr(self, f"decoder{level}")(f[:B], f[B:], prev)
+            pyramid[level] = prev[0]
         flow, feat = prev
-        return (flow.float() + self.refiner(feat).float()) * 20.0
+        pyramid[2] = flow.float() + self.refiner(feat).float()
+        out = pyramid[2] * 20.0
+        return (out, pyramid) if return_pyramid else out
 
 
 @torch.inference_mode()

@@ -26,12 +26,13 @@ Layout: features [B, C, H, W]; volume levels [B, H, W, h_l, w_l].
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..core.device import cached_tensors
 
 
 def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
@@ -78,7 +79,7 @@ def pack_pyramid(pyramid: list[torch.Tensor]) -> PackedPyramid:
     return PackedPyramid(flat, tuple(sizes))
 
 
-@functools.lru_cache(maxsize=32)
+@cached_tensors(32)
 def _lookup_tables(radius: int, sizes: tuple, device: torch.device):
     """The lookup's constant tables on ``device``: per (level, offset)
     [L, T] the level's scale 2^-l and the offsets dy and dx (row-major);

@@ -41,9 +41,12 @@ within a split, splits ascending, no atomics, so launches repeat bit for
 bit.
 
 ``local_correlation`` launches the kernel for CUDA tensors and uses
-:func:`correlation_plain` only for CPU tensors.  The kernel is forward only
-(its backward comes with training): on the card it refuses inputs that
-require a gradient.
+:func:`correlation_plain` only for CPU tensors.  Where an input needs a
+gradient, the kernel runs inside :class:`CorrelationFunction`, whose
+backward is the plain version's autograd, recomputed from the saved inputs:
+the reference's ``correlation_pallas`` is a ``jax.custom_vjp`` whose
+backward is ``jax.vjp`` of ``correlation_lax`` (no backward kernel exists
+there either).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ import torch.nn.functional as F
 
 from ..core.device import H100_SMS, sm_count
 from ._build import check_launch, load_kernels
+from ._vjp import plain_vjp
 
 # the kernel is instantiated for these window sizes K = 2D + 1
 KERNEL_K = (7, 9)
@@ -219,19 +223,29 @@ def local_correlation(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
     [B, C, H, W] fp32.
 
     CUDA tensors launch the kernel on the current stream (counted in
-    ``local_correlation.launches``); CPU tensors take the plain version."""
+    ``local_correlation.launches``), through :class:`CorrelationFunction`
+    where an input needs a gradient; CPU tensors take the plain version."""
     _check(f1, f2, out_stride)
-    _, K = _geometry(max_disp, disp_stride)
     dev = f1.device
     if dev.type == "cpu":
         return correlation_plain(f1, f2, max_disp, disp_stride, out_stride)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        raise RuntimeError(
-            "local_correlation: the CUDA kernel is forward only (its backward "
-            "comes with training); run under torch.inference_mode() or "
-            "torch.no_grad(), or correlate CPU tensors")
+        return CorrelationFunction.apply(f1, f2, max_disp, disp_stride,
+                                         out_stride)
+    return _kernel(f1, f2, max_disp, disp_stride, out_stride)
+
+
+local_correlation.launches = 0
+
+
+def _kernel(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
+            disp_stride: int, out_stride: int) -> torch.Tensor:
+    """The kernel's forward on checked CUDA tensors, counted in
+    ``local_correlation.launches``."""
+    _, K = _geometry(max_disp, disp_stride)
+    dev = f1.device
     if K not in KERNEL_K:
         raise ValueError(f"no CUDA kernel for a {K}x{K} window (max_disp "
                          f"{max_disp}, disp_stride {disp_stride}); built for "
@@ -247,7 +261,22 @@ def local_correlation(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,
     return out
 
 
-local_correlation.launches = 0
+class CorrelationFunction(torch.autograd.Function):
+    """K4 with a gradient: the forward is the kernel, the backward the
+    autograd of :func:`correlation_plain` on the saved inputs (the
+    reference's ``custom_vjp``, ``ops/correlation_pallas.py`` :120-126)."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_disp, disp_stride, out_stride):
+        ctx.save_for_backward(f1, f2)
+        ctx.config = (max_disp, disp_stride, out_stride)
+        return _kernel(f1, f2, max_disp, disp_stride, out_stride)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return plain_vjp(correlation_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, *ctx.config)
 
 
 def launch(f1: torch.Tensor, f2: torch.Tensor, max_disp: int,

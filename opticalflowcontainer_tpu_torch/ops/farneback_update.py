@@ -11,11 +11,10 @@ path (``classical/farneback.py`` ``_update_matrices``) in plane-major layout.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..core.device import cached_tensors
 from ._build import check_launch, load_kernels
 
 # Edge ramp (5 px) that down-weights the expansion near the level's borders.
@@ -37,7 +36,7 @@ def border_weight(H: int, W: int) -> np.ndarray:
     return _ramp_vec(H)[:, None] * _ramp_vec(W)[None, :]
 
 
-@functools.lru_cache(maxsize=64)
+@cached_tensors(64)
 def _device_border_weight(H: int, W: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(border_weight(H, W)).to(device)
 

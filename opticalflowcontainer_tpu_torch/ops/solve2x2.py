@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from ..core.device import H100_SMS, sm_count
+from ..core.device import H100_SMS, cached_tensors, sm_count
 from ..core.filters import _sepconv
 from ._build import check_launch, load_kernels
 
@@ -114,7 +114,7 @@ def blur_solve_plain(M: torch.Tensor, winsize: int,
     return (G11 * h1 - G01 * h2) * idet, (G00 * h2 - G01 * h1) * idet
 
 
-@functools.lru_cache(maxsize=32)
+@cached_tensors(32)
 def _device_taps(winsize: int, gaussian: bool, device: torch.device):
     return torch.from_numpy(
         blur_taps(winsize, gaussian).astype(np.float32)).to(device)

@@ -9,8 +9,10 @@ kernel's block-mean ``slack`` window and finite ``pad`` are Mosaic mechanics
 and have no counterpart.
 
 ``warp_bilinear`` launches the kernel for CUDA tensors and uses
-:func:`warp_bilinear_plain` only for CPU tensors.  The kernel has no
-backward: on the card it refuses inputs that require a gradient.  Its
+:func:`warp_bilinear_plain` only for CPU tensors.  Where an input needs a
+gradient, the kernel runs inside :class:`WarpFunction`, whose backward is
+the plain version's autograd, recomputed from the saved inputs (the
+reference's warps train through XLA's autodiff of ``core/warp.py``).  Its
 launch configuration (:func:`launch_config`) is a pure function of the
 shape and the card's SM count, so the CPU tests check it.
 """
@@ -22,6 +24,7 @@ import torch
 
 from ..core.device import H100_SMS, sm_count
 from ._build import check_launch, load_kernels
+from ._vjp import plain_vjp
 
 PADDINGS = ("zeros", "edge")
 THREADS = 128       # threads per block (kThreads in the source); one pixel each
@@ -133,16 +136,25 @@ def warp_bilinear(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     (pixels, x right, y down) -> [B, C, H, W] fp32.
 
     CUDA tensors launch the kernel on the current stream (counted in
-    ``warp_bilinear.launches``); CPU tensors take the plain version."""
+    ``warp_bilinear.launches``), through :class:`WarpFunction` where an
+    input needs a gradient; CPU tensors take the plain version."""
     _check(src, u, v, padding)
     if src.device.type == "cpu":
         return warp_bilinear_plain(src, u, v, padding, mask_threshold)
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (src, u, v)):
-        raise RuntimeError(
-            "warp_bilinear: the CUDA kernel has no backward; run under "
-            "torch.inference_mode() or torch.no_grad(), or warp CPU tensors")
+        return WarpFunction.apply(src, u, v, padding, mask_threshold)
+    return _kernel(src, u, v, padding, mask_threshold)
+
+
+warp_bilinear.launches = 0
+
+
+def _kernel(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            padding: str, mask_threshold: float | None) -> torch.Tensor:
+    """The kernel's forward on checked CUDA tensors, counted in
+    ``warp_bilinear.launches``."""
     B, C, H, W = src.shape
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the launch grid (65535)")
@@ -153,7 +165,23 @@ def warp_bilinear(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return out
 
 
-warp_bilinear.launches = 0
+class WarpFunction(torch.autograd.Function):
+    """K3 with a gradient: the forward is the kernel, the backward the
+    autograd of :func:`warp_bilinear_plain` on the saved inputs.  With
+    ``mask_threshold`` the hard mask passes no gradient, as the
+    reference's ``core/warp.py`` ``warp_with_mask`` passes none."""
+
+    @staticmethod
+    def forward(ctx, src, u, v, padding, mask_threshold):
+        ctx.save_for_backward(src, u, v)
+        ctx.config = (padding, mask_threshold)
+        return _kernel(src, u, v, padding, mask_threshold)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return plain_vjp(warp_bilinear_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, *ctx.config)
 
 
 def launch(src: torch.Tensor, u: torch.Tensor, v: torch.Tensor, padding: str,

@@ -7,5 +7,10 @@
 - ``python -m opticalflowcontainer_tpu_torch.tools.zoo_latency`` -- device
   ms per frame of each learned family at its reference operating point;
 - ``python -m opticalflowcontainer_tpu_torch.tools.monitor`` -- per-process
-  CPU and RSS sampling to CSV, and the summary of the device-memory logs.
+  CPU and RSS sampling to CSV, and the summary of the device-memory logs;
+- ``python -m opticalflowcontainer_tpu_torch.tools.train_flow`` -- train a
+  family of the zoo on synthetic affine motion and export its flat npz;
+- ``python -m opticalflowcontainer_tpu_torch.tools.pwc_distill_extractor``
+  -- distill the LFN3 trunk into PWC-Net's extractor (stage A of its
+  bootstrap).
 """

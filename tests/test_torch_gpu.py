@@ -323,18 +323,54 @@ def test_correlation_variants_agree(name, cuda):
                 assert torch.equal(got, want), cfg
 
 
-def test_kernels_refuse_a_gradient(cuda):
-    """K3 and K4 have no backward yet: on the card they raise rather than
-    drop the gradient, and run under no_grad."""
-    f = torch.randn(1, 4, 8, 8, device=cuda, requires_grad=True)
-    uv = torch.zeros(1, 8, 8, device=cuda)
-    with pytest.raises(RuntimeError, match="forward only"):
-        k4.local_correlation(f, f, 4)
-    with pytest.raises(RuntimeError, match="no backward"):
-        k3.warp_bilinear(f, uv, uv)
+def test_kernels_take_a_gradient(cuda):
+    """K3 and K4 with inputs that need a gradient: the forward is the
+    kernel (counted), the backward the plain versions' autograd; the
+    gradients equal the plain path's within 1e-5 of their scale (the same
+    plain backward at forward values that differ by fp32 summation order).
+    Under no_grad the kernels run as before."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f1 = torch.randn(2, 8, 12, 16, device=cuda, generator=g, requires_grad=True)
+    f2 = torch.randn(2, 8, 12, 16, device=cuda, generator=g, requires_grad=True)
+    u = (3 * torch.randn(2, 12, 16, device=cuda, generator=g)).requires_grad_()
+    v = (3 * torch.randn(2, 12, 16, device=cuda, generator=g)).requires_grad_()
+    w = torch.randn(2, 81, 12, 16, device=cuda, generator=g)
+    for mask in (None, 0.999):
+        k3.warp_bilinear.launches = k4.local_correlation.launches = 0
+        out = k4.local_correlation(f1, k3.warp_bilinear(f2, u, v, "zeros", mask), 4)
+        got = torch.autograd.grad((out * w).sum(), (f1, f2, u, v))
+        assert (k3.warp_bilinear.launches, k4.local_correlation.launches) == (1, 1)
+        plain = k4.correlation_plain(
+            f1, k3.warp_bilinear_plain(f2, u, v, "zeros", mask), 4)
+        want = torch.autograd.grad((plain * w).sum(), (f1, f2, u, v))
+        for a, b in zip(got, want):
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max(), mask
     with torch.no_grad():
-        assert k4.local_correlation(f, f, 4).shape == (1, 81, 8, 8)
-        assert k3.warp_bilinear(f, uv, uv).shape == f.shape
+        assert k4.local_correlation(f1, f1, 4).shape == (2, 81, 12, 16)
+        assert k3.warp_bilinear(f1, u, v).shape == f1.shape
+
+
+def test_pwcnet_training_step_through_the_kernels(cuda):
+    """One step of PWC-Net's training loss (train_flow's, B=2, 64x64, the
+    trainer's init) through the kernels: 4 K3 and 5 K4 launches, a finite
+    loss, and the gradients within chip_smoke.TRAIN_GRAD_REL of the plain
+    path's on the model's scale (cuDNN in fp32 and deterministic on both;
+    the bars' reasons are beside that constant)."""
+    import chip_smoke
+    from opticalflowcontainer_tpu_torch.tools import train_flow
+
+    batch = chip_smoke.train_batch(torch, cuda, B=2, H=64, W=64, seed=3)
+    model = chip_smoke.trainer_init(torch, "pwcnet", cuda, seed=3)
+    loss_fn = train_flow.make_loss("pwcnet")
+    with chip_smoke.exact_convolutions(torch):
+        k3.warp_bilinear.launches = k4.local_correlation.launches = 0
+        loss, grads = chip_smoke.train_grads(torch, model, loss_fn, batch)
+        assert (k3.warp_bilinear.launches, k4.local_correlation.launches) == (4, 5)
+        with chip_smoke.plain_kernels():
+            plain, want = chip_smoke.train_grads(torch, model, loss_fn, batch)
+    assert torch.isfinite(loss) and abs(float(loss) - float(plain)) <= 1e-5 * float(plain)
+    worst, l2 = chip_smoke.grad_gap(torch, grads, want)
+    assert worst <= chip_smoke.TRAIN_GRAD_REL and l2 <= chip_smoke.TRAIN_GRAD_REL
 
 
 def test_pwcnet_on_card_matches_cpu(cuda):

@@ -1,7 +1,7 @@
 """Hygiene of the PyTorch port: every source compiles, no tabs or trailing
 whitespace (as tests/test_hygiene.py checks the JAX package), and neither the
-port nor chip_smoke.py imports JAX, cv2, PIL or the JAX package at any
-depth: the machine with the card has none of them."""
+port nor chip_smoke.py imports JAX, cv2, PIL, optax, flax, orbax, scipy or
+the JAX package at any depth: the machine with the card has none of them."""
 import ast
 import pathlib
 import py_compile
@@ -11,7 +11,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "opticalflowcontainer_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "cv2", "PIL", "opticalflowcontainer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "cv2", "PIL", "opticalflowcontainer_tpu", "optax",
+             "flax", "orbax", "scipy")
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
