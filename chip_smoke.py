@@ -10,7 +10,8 @@ seconds:
 
 0. the device: name, count, and nvidia-smi's name and power limit;
 1. the build: one nvcc call over opticalflowcontainer_tpu_torch/ops/csrc/*.cu
-   (build seconds and the ptxas register/shared-memory lines);
+   and the host-only *.cpp (build seconds and the ptxas register/shared-memory
+   lines);
 2. K1 farneback_update vs its plain version at the 720p finest level, B=6,
    with flows that put taps out of bounds; timed beside its bound;
 3. K2 blur_solve vs its plain version, box and Gaussian, at the clip's
@@ -109,7 +110,22 @@ seconds:
    and served at 640x480); RAFT-small's loss on a fixed batch falling
    below 0.7x in 8 steps (tests/test_training.py's recipe); PWC-Net's and
    LFN3's forward and backward device time and the share of K3/K4's
-   plain backward in it.
+   plain backward in it;
+24. the junction pipeline at 640x480: the compiled junction detector (host
+   C++ from ops/csrc/junction_detect.cpp, built by the same nvcc call)
+   against the plain one on tests/data/fishnet_golden.png (rotated cells;
+   recall and precision against its ground truth) and on a drawn fishnet,
+   ms per frame of each; bringup_junction on the card with the default
+   Farneback backend (K1/K2) on the fishnet moving 2 px a frame (the mean
+   velocity within 0.3 px/frame), then with LFN3's model backend on seeded
+   weights (13/6 K3/K4 launches a pair), the detector's ms per frame and
+   image publish -> velocity p50/p99; bringup_junction_remote (the detector
+   in its own process over the TCP bridge, the same velocity bar, the
+   round trip p50/p99); make_adaptive_backend around Farneback (CLAHE,
+   median 3, the magnitude mask), the card against the CPU and ms a frame
+   with and without it; preprocess_frames, the card against the CPU; and
+   DevicePrefetcher over 100 frames (order and bytes; under the profiler
+   its copies on its side stream).
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
@@ -2823,6 +2839,310 @@ def serve_pair(torch, name: str, model) -> "torch.Tensor":
     return estimate(model, x1[0], x2[0])
 
 
+# ------------------------------------------------------------ phase 24
+REPO = os.path.dirname(os.path.abspath(__file__))
+_FISHNET: dict = {}
+
+
+def fishnet_frame(shift: int, H=480, W=640, cell=24, margin=160) -> np.ndarray:
+    """tests/test_launch.py's fishnet (2 px lines of (30, 40, 50) every
+    ``cell`` px on blue water), drawn with the port's core/draw.py ``margin``
+    px wider and cropped so that the net moves ``shift`` px to the right."""
+    from opticalflowcontainer_tpu_torch.core.draw import line
+
+    key = (H, W, cell, margin)
+    if key not in _FISHNET:
+        img = np.full((H, W + margin, 3), (180, 120, 60), np.uint8)
+        for y in range(12, H, cell):
+            line(img, (0, y), (W + margin, y), (30, 40, 50), 2)
+        for x in range(12, W + margin, cell):
+            line(img, (x, 0), (x, H), (30, 40, 50), 2)
+        _FISHNET[key] = img
+    return np.ascontiguousarray(_FISHNET[key][:, margin - shift:margin - shift + W])
+
+
+def match_frac(a: np.ndarray, b: np.ndarray, tol: float) -> float:
+    """Share of the points of ``a`` with a point of ``b`` within ``tol``."""
+    if len(a) == 0 or len(b) == 0:
+        return 0.0
+    d = np.linalg.norm(a[:, None] - b[None], axis=-1).min(axis=1)
+    return float((d < tol).mean())
+
+
+def detector_checks() -> None:
+    """The compiled detector against the plain one on the golden image
+    (rotated cells) and on a drawn 640x480 fishnet (axis-aligned): the same
+    count and every point within 1e-3 px; the golden recall and precision
+    at 5 px (tests/test_native_junction.py's bars); ms per frame of each."""
+    from opticalflowcontainer_tpu_torch.native import detect_junctions
+    from opticalflowcontainer_tpu_torch.utils.png import imread
+
+    golden = imread(os.path.join(REPO, "tests", "data", "fishnet_golden.png"))
+    gt = np.load(os.path.join(REPO, "tests", "data", "fishnet_golden_gt.npy"))
+    cases = (("golden 640x480, rotated", golden, dict(grid_area=26.0 ** 2, rotated=True)),
+             ("drawn fishnet 640x480", fishnet_frame(0), dict(grid_area=22.0 ** 2)))
+    for label, img, kw in cases:
+        compiled = detect_junctions(img, **kw)
+        plain = detect_junctions(img, force_python=True, **kw)
+        t_c = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            detect_junctions(img, **kw)
+            t_c.append((time.perf_counter() - t0) * 1e3)
+        t_p = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            detect_junctions(img, force_python=True, **kw)
+            t_p.append((time.perf_counter() - t0) * 1e3)
+        gap = float(np.abs(compiled - plain).max()) if len(compiled) == len(plain) > 0 else None
+        print(f"detector, {label}: compiled {len(compiled)} junctions, plain "
+              f"{len(plain)}; largest gap {gap} px (bar 1e-3); ms per frame on "
+              f"the host: compiled {np.median(t_c):.3f} (median of 20), plain "
+              f"{np.median(t_p):.3f} (median of 3)")
+        require(len(compiled) == len(plain) > 0, f"{label}: compiled and plain agree in count")
+        require(gap <= 1e-3, f"{label}: compiled = plain within 1e-3 px")
+        if label.startswith("golden"):
+            recall, precision = match_frac(gt, compiled, 5.0), match_frac(compiled, gt, 5.0)
+            print(f"  against fishnet_golden_gt.npy ({len(gt)} junctions): recall "
+                  f"{recall:.4f} (bar > 0.85), precision {precision:.4f} (bar > 0.95) at 5 px")
+            require(recall > 0.85 and precision > 0.95, "the golden recall and precision")
+
+
+def run_junction_bringup(bus, node, det, frames, label: str) -> dict:
+    """Publish ``frames`` (stamps 1 s apart) into a junction bringup in topic
+    mode; every synced pair must give a velocity.  Prints the velocities'
+    mean (px/frame at pixel_to_meter 1), the detector's ms per frame and
+    image-publish -> velocity-publish p50/p99; returns the launch counts."""
+    node.vel.pixel_to_meter = 1.0
+    vels, t_vel = [], []
+    bus.subscribe(f"/optical_flow/{node.p.name}_velocity",
+                  lambda m: (vels.append(m.x), t_vel.append(time.perf_counter())))
+    detect, det_ms = det._detect, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = detect(*a, **kw)
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    det._detect = timed
+    from opticalflowcontainer_tpu_torch.runtime.messages import Header, ImageMsg
+
+    lat = []
+    reset_counts()
+    try:
+        for t, frame in enumerate(frames):
+            t0 = time.perf_counter()
+            n_before = len(vels)
+            bus.publish("/camera/color/image_raw", ImageMsg(Header(float(t)), frame))
+            if len(vels) > n_before:
+                lat.append((t_vel[-1] - t0) * 1e3)
+    finally:
+        node.stop()
+        det.stop()
+    counts = kernel_counts()
+    v = np.array(vels)
+    print(f"bringup_junction {label}, {len(frames)} frames: {len(v)} velocities, "
+          f"{node.frames_failed} failed; mean {v.mean() if len(v) else float('nan'):.4f} "
+          f"px/frame; detector node {np.median(det_ms):.3f} ms per frame (median); "
+          f"image publish -> velocity publish p50 {np.percentile(lat, 50):.3f} ms, "
+          f"p99 {np.percentile(lat, 99):.3f} ms; launches {counts}")
+    require(len(v) == len(frames) - 1 and node.frames_failed == 0,
+            "every synced pair processed, none failed")
+    return {"vels": v, "counts": counts}
+
+
+def junction_pipeline_phase(torch, dev, trace_dir, n=61, seed=11) -> dict:
+    """Phase 24: the junction pipeline at 640x480 (see the docstring)."""
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.models.liteflownet3 import LiteFlowNet3, estimate
+    from opticalflowcontainer_tpu_torch.runtime import launch
+    from opticalflowcontainer_tpu_torch.runtime.messages import Header, ImageMsg
+    from opticalflowcontainer_tpu_torch.runtime.nodes import make_model_backend
+
+    H, W = 480, 640
+    detector_checks()
+    frames = [fishnet_frame(2 * t) for t in range(n)]
+    by_path = {}
+
+    # the default bringup: compiled detector + Farneback (K1/K2) on the card
+    bus, node, det = launch.bringup_junction(grid_area=22.0 ** 2, device=dev)
+    g0, g1 = (f.mean(-1).astype(np.float32) for f in frames[:2])
+    node.backend(g0, g1, 1.0)  # warm-up
+    r = run_junction_bringup(bus, node, det, frames, "Farneback")
+    per_frame = (fb._num_levels(H, W, 2, 0.5) + 1) * 2
+    require(r["counts"]["farneback_update"] == r["counts"]["blur_solve"]
+            == per_frame * (n - 1), f"K1 and K2 launched {per_frame} times a pair")
+    require(abs(r["vels"].mean() - 2.0) < 0.3, "the mean velocity within 0.3 px/frame of 2")
+    by_path["junction_farneback"] = r["counts"]
+
+    # LFN3's model backend (K3/K4) on seeded weights
+    model = seeded_liteflownet(torch, LiteFlowNet3, seed, dev)
+    backend = make_model_backend(functools.partial(estimate, model), device=dev)
+    backend(frames[0], frames[1], 1.0)  # warm-up
+    k = 21
+    bus, node, det = launch.bringup_junction(backend=backend, grid_area=22.0 ** 2)
+    r = run_junction_bringup(bus, node, det, frames[:k], "LFN3 (seeded)")
+    require(r["counts"]["warp_bilinear"] == LFN3_LAUNCHES["warp_bilinear"] * (k - 1)
+            and r["counts"]["local_correlation"]
+            == LFN3_LAUNCHES["local_correlation"] * (k - 1),
+            "K3 and K4 ran 13 and 6 times a pair")
+    by_path["junction_lfn3"] = r["counts"]
+
+    # the detector in its own process, over the TCP bridge
+    import threading
+
+    t0 = time.perf_counter()
+    bus, node, server, child = launch.bringup_junction_remote(grid_area=22.0 ** 2,
+                                                              device=dev)
+    print(f"bringup_junction_remote: the detector process READY in "
+          f"{time.perf_counter() - t0:.2f} s")
+    try:
+        node.vel.pixel_to_meter = 1.0
+        node.backend(g0, g1, 1.0)
+        vels, arrived, rtt = [], threading.Semaphore(0), []
+        bus.subscribe("/optical_flow/JUNCTION_velocity", lambda m: vels.append(m.x))
+        bus.subscribe("/junction_detector/junctions", lambda m: arrived.release())
+        m = 31
+        reset_counts()
+        for t in range(m):
+            bus.publish("/camera/color/image_raw", ImageMsg(Header(float(t)), frames[t]))
+            require(arrived.acquire(timeout=30.0), "junctions came back over the bridge")
+        counts = kernel_counts()
+        failed = node.frames_failed
+        node.stop()  # the round trip alone: image out, junctions back
+        for t in range(m):
+            t0 = time.perf_counter()
+            bus.publish("/camera/color/image_raw", ImageMsg(Header(float(m + t)), frames[t]))
+            require(arrived.acquire(timeout=30.0), "junctions came back over the bridge")
+            rtt.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        child.stdin.close()
+        child.wait(timeout=30)
+        server.close()
+        node.stop()
+    v = np.array(vels)
+    print(f"bringup_junction_remote, {m} frames: {len(v)} velocities, {failed} "
+          f"failed, mean {v.mean():.4f} px/frame; round trip image -> junctions "
+          f"(bridge, the compiled detector in its process, bridge) p50 "
+          f"{np.percentile(rtt, 50):.3f} ms, p99 {np.percentile(rtt, 99):.3f} ms over "
+          f"{m} frames; detector exit code {child.returncode}; launches {counts}")
+    require(len(v) == m - 1 and failed == 0, "every synced pair processed")
+    require(abs(v.mean() - 2.0) < 0.3, "the remote mean velocity within 0.3 of 2")
+    require(child.returncode == 0, "the detector process exits 0")
+    by_path["junction_remote"] = counts
+
+    by_path["junction_adaptive"] = adaptive_checks(torch, dev)
+    ingest_checks(torch, dev)
+    prefetch_checks(torch, dev, trace_dir)
+    return by_path
+
+
+def adaptive_checks(torch, dev, H=480, W=640, reps=20) -> dict:
+    """make_adaptive_backend (CLAHE, median 3, the magnitude mask) around the
+    Farneback backend: the card against the CPU (phase 4's bars) and ms a
+    frame with and without the wrapper."""
+    from opticalflowcontainer_tpu_torch.runtime.adaptive import (
+        AdaptiveParams, make_adaptive_backend)
+    from opticalflowcontainer_tpu_torch.runtime.nodes import make_farneback_backend
+
+    # a list, so that a frame passed twice is the same object (the wrapper
+    # reuses the previous frame's preprocessed form by identity)
+    g = list(plane_waves(torch, H, W, [(1.5 * t, 0.5 * t) for t in range(reps + 2)],
+                         seed=17, device="cpu").numpy())
+    params = AdaptiveParams(flow_median_ksize=3, flow_max_mag=50.0)
+    kw = dict(levels=2, winsize=13, iterations=2)
+    plain_card = make_farneback_backend(device=dev, **kw)
+    card = make_adaptive_backend(plain_card, params)
+    cpu = make_adaptive_backend(make_farneback_backend(device="cpu", **kw), params)
+    reset_counts()
+    got = card(g[0], g[1], 1 / 30)
+    counts = kernel_counts()
+    want = cpu(g[0], g[1], 1 / 30)
+    d = np.abs(got - want)
+    t_wrap, t_plain = [], []
+    for t in range(reps):
+        t0 = time.perf_counter()
+        card(g[t + 1], g[t + 2], 1 / 30)
+        t_wrap.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        plain_card(g[t + 1], g[t + 2], 1 / 30)
+        t_plain.append((time.perf_counter() - t0) * 1e3)
+    print(f"make_adaptive_backend(Farneback) {W}x{H}: card vs CPU mean|d| "
+          f"{d.mean():.3e}, max|d| {d.max():.3e} px (bars 1e-3, 1e-2); u "
+          f"{got[..., 0].mean():.4f} px (texture moved 1.5); ms a frame (host "
+          f"clock, flow to numpy, median of {reps}): wrapped {np.median(t_wrap):.3f}, "
+          f"bare {np.median(t_plain):.3f}; launches {counts}")
+    require(d.mean() <= 1e-3 and d.max() <= 1e-2, "adaptive: the card agrees with the CPU")
+    return counts
+
+
+def ingest_checks(torch, dev) -> None:
+    """preprocess_frames on the card against the CPU, for gray + resize and
+    RGB + mean."""
+    from opticalflowcontainer_tpu_torch.core.ingest import preprocess_frames
+
+    rng = np.random.default_rng(21)
+    frames = rng.integers(0, 256, (4, 480, 640, 3), dtype=np.uint8)
+    for kw in (dict(out_hw=(240, 320), to_gray=True), dict(to_rgb=True, mean=(0.4, 0.45, 0.5)),
+               dict(out_hw=(384, 512), normalize=False)):
+        got = preprocess_frames(frames, device=dev, **kw).cpu().numpy()
+        want = preprocess_frames(frames, device="cpu", **kw).numpy()
+        d = float(np.abs(got - want).max())
+        scale = 1.0 if kw.get("normalize", True) else 255.0
+        print(f"preprocess_frames {kw}: {got.shape}, card vs CPU max|d| {d:.3e} "
+              f"(bar {1e-5 * scale:g})")
+        require(got.shape == want.shape and d <= 1e-5 * scale,
+                "preprocess_frames: the card agrees with the CPU")
+
+
+def prefetch_checks(torch, dev, trace_dir, n=100) -> None:
+    """DevicePrefetcher over ``n`` 640x480 uint8 frames: the source's order
+    and bytes; under the profiler, its host-to-device copies on its side
+    stream, not on the stream that consumes them."""
+    from opticalflowcontainer_tpu_torch.runtime.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(22)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(n)]
+    t0 = time.perf_counter()
+    got = [x.float().mean() for x in DevicePrefetcher(iter(frames), device=dev)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = [x.cpu().numpy() for x in DevicePrefetcher(iter(frames), device=dev)]
+    require(len(same) == n and all(np.array_equal(a, b) for a, b in zip(same, frames)),
+            "the prefetcher yields the source's frames, in order, byte for byte")
+    want = [float(f.astype(np.float64).mean()) for f in frames]
+    require(all(abs(float(a) - b) < 1e-2 for a, b in zip(got, want)),
+            "the consumer read each frame after its copy")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x in DevicePrefetcher(iter(frames[:20]), device=dev):
+            x.float().mean()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(trace_dir or tmp, "prefetch_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    h2d = [e["args"].get("stream") for e in events
+           if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kern = {e["args"].get("stream") for e in events if e.get("cat") == "kernel"}
+    print(f"DevicePrefetcher, {n} frames 640x480 uint8: order and bytes equal; "
+          f"{ms:.3f} ms for the {n} (host clock, a mean a frame); profiled 20 "
+          f"frames: {len(h2d)} host-to-device copies recorded (the profiler may "
+          f"drop some), on streams {sorted(set(h2d))}; the consumer's kernels on "
+          f"streams {sorted(kern)}")
+    if not events:
+        print("  profiler recorded no device events: the copies' stream not measured")
+        return
+    # the profiler can miss activity records (PERF.md section 7), so the
+    # check is on the copies it recorded: each on the side stream
+    require(h2d and not set(h2d) & kern,
+            "every recorded copy ran on the side stream, none on the consumer's")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2900,6 +3220,8 @@ def main() -> int:
         by_path.update(eval_phase(torch, dev))
     with phase("23 training (K3/K4 backward, train_flow.main for seven families)"):
         by_path.update(training_phase(torch, dev))
+    with phase("24 junction pipeline 640x480"):
+        by_path.update(junction_pipeline_phase(torch, dev, args.trace))
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

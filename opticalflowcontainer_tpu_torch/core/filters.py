@@ -3,7 +3,7 @@
 Counterpart of the reference's ``core/filters.py`` for what the Farneback
 and Lucas-Kanade paths need: OpenCV's ``getGaussianKernel``, a separable
 correlation with OpenCV's border modes, and the Scharr derivatives of the
-LK tracker.  Border conventions:
+LK tracker; and the adaptive node's median, bilateral and CLAHE filters.  Border conventions:
 
 - ``BORDER_REFLECT_101`` == ``numpy.pad(mode="reflect")``  (GaussianBlur,
   pyrDown)
@@ -94,3 +94,94 @@ def scharr_deriv(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     gx = _sepconv(img, deriv, smooth, "replicate")
     gy = _sepconv(img, smooth, deriv, "replicate")
     return gx, gy
+
+
+# ------------------------------------------------ adaptive pre/post filters
+# The reference's adaptive node (runtime/adaptive.py) filters the frames
+# before the flow backend and the flow after it; these run on the tensor's
+# device.
+
+def median_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """``cv2.medianBlur`` for odd ``ksize`` on [..., H, W] (border
+    replicate): the middle of each sorted ksize x ksize neighbourhood."""
+    r = ksize // 2
+    x = _pad2d(img, r, r, "replicate")
+    H, W = img.shape[-2], img.shape[-1]
+    patches = torch.stack([x[..., i:i + H, j:j + W]
+                           for i in range(ksize) for j in range(ksize)], dim=-1)
+    return patches.sort(dim=-1).values[..., (ksize * ksize) // 2]
+
+
+def bilateral_filter(img: torch.Tensor, d: int, sigma_color: float,
+                     sigma_space: float) -> torch.Tensor:
+    """``cv2.bilateralFilter`` equivalent on float [..., H, W]: a brute-force
+    disc window of diameter ``d`` (from ``sigma_space`` when ``d <= 0``),
+    replicate border, the reference's order of the sums.  ``sigma_color``
+    is on the image's scale ([0, 255] or [0, 1])."""
+    if d <= 0:
+        d = int(round(sigma_space * 1.5)) * 2 + 1
+    r = d // 2
+    x = _pad2d(img, r, r, "replicate")
+    H, W = img.shape[-2], img.shape[-1]
+    num = torch.zeros_like(img)
+    den = torch.zeros_like(img)
+    inv_2sc = -0.5 / (sigma_color * sigma_color)
+    for i in range(d):
+        for j in range(d):
+            di, dj = i - r, j - r
+            if di * di + dj * dj > r * r:
+                continue
+            nb = x[..., i:i + H, j:j + W]
+            w_s = float(np.float32(np.exp((di * di + dj * dj) * (-0.5)
+                                          / (sigma_space * sigma_space))))
+            w = w_s * torch.exp((nb - img) ** 2 * inv_2sc)
+            num = num + w * nb
+            den = den + w
+    return num / den
+
+
+def clahe(img: torch.Tensor, clip_limit=2.0, grid: int = 8) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalization of float [..., H, W]
+    in the 0..255 range, ``cv2.createCLAHE(clip, (grid, grid))``'s
+    analogue: tile histograms (integer counts), clipped and redistributed,
+    their CDFs as LUTs, and each pixel's value bilinear between the four
+    nearest tiles' LUTs.  H and W must be multiples of ``grid``.
+    ``clip_limit`` may be a float or a 0-dim tensor on the image's device
+    (the adaptive node computes it there)."""
+    H, W = img.shape[-2], img.shape[-1]
+    if H % grid or W % grid:
+        raise ValueError(f"clahe needs H and W divisible by grid={grid}, got {H}x{W}")
+    th, tw = H // grid, W // grid
+    lead = tuple(img.shape[:-2])
+    n_bins = 256
+    dev = img.device
+    # truncation toward zero of the clipped value, as astype(int32)
+    pix = img.clamp(0, 255).to(torch.int64)
+    tiles = pix.reshape(*lead, grid, th, grid, tw).movedim(-2, -3)
+    tiles = tiles.reshape(*lead, grid * grid, th * tw)
+    hist = torch.zeros(*lead, grid * grid, n_bins, device=dev, dtype=torch.float32)
+    hist.scatter_add_(-1, tiles, torch.ones(tiles.shape, device=dev))
+    clip = torch.as_tensor(clip_limit, dtype=torch.float32, device=dev)
+    limit = torch.clamp(clip * (th * tw) / n_bins, min=1.0)
+    excess = torch.relu(hist - limit).sum(-1, keepdim=True)
+    hist = torch.minimum(hist, limit) + excess / n_bins
+    cdf = hist.cumsum(-1)
+    luts = (cdf / cdf[..., -1:] * 255.0).reshape(*lead, grid * grid * n_bins)
+
+    ys = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / th - 0.5
+    xs = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / tw - 0.5
+    y0 = ys.floor().clamp(0, grid - 1).to(torch.int64)
+    x0 = xs.floor().clamp(0, grid - 1).to(torch.int64)
+    y1 = (y0 + 1).clamp(max=grid - 1)
+    x1 = (x0 + 1).clamp(max=grid - 1)
+    wy = (ys - y0).clamp(0.0, 1.0)[:, None]
+    wx = (xs - x0).clamp(0.0, 1.0)[None, :]
+
+    def lut_at(ty, tx):
+        tile = ty[:, None] * grid + tx[None, :]  # [H, W]
+        idx = (tile * n_bins + pix).reshape(*lead, H * W)
+        return luts.gather(-1, idx).reshape(*lead, H, W)
+
+    top = lut_at(y0, x0) * (1 - wx) + lut_at(y0, x1) * wx
+    bot = lut_at(y1, x0) * (1 - wx) + lut_at(y1, x1) * wx
+    return top * (1 - wy) + bot * wy

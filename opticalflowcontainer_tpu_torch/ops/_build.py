@@ -1,8 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources go through ONE ``nvcc`` call into a shared library
-with a plain C interface (each kernel has an ``extern "C"`` launcher that
-returns ``cudaGetLastError()``), loaded with ``ctypes``.  No source includes
+All ``csrc/*.cu`` sources, and the host-only ``csrc/*.cpp`` (the junction
+detector, which nvcc hands to the host compiler), go through ONE ``nvcc``
+call into a shared library with a plain C interface (each kernel has an
+``extern "C"`` launcher that returns ``cudaGetLastError()``), loaded with
+``ctypes``.  Host code is built with ``-ffp-contract=off``: a fused
+multiply-add happens only where the source writes one.  No source includes
 PyTorch's headers, so the build takes seconds; there is no lock file and no
 fallback: a failed build raises with nvcc's output.
 
@@ -26,10 +29,10 @@ from ..core.device import find_nvcc
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC,-ffp-contract=off", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C interface of every launcher: name -> (restype, argtypes).  Pointers and
 # the stream are c_void_p: a bare Python int would be cut to 32 bits.
 _SIGNATURES = {
@@ -50,6 +53,10 @@ _SIGNATURES = {
     # tile_w, tile_h, taps, splits, chunk, window stride, 16-byte copies,
     # stages, smem, stream
     "ofc_correlation": (_I, [_P, _P, _P, _P] + [_I] * 16 + [_P]),
+    # host code: bgr, H, W, grid_area, area_tol, cluster_eps,
+    # min_cluster_pts, rb_lo, rb_hi, rotated, out_xy, max_out
+    "ofc_detect_junctions": (_I, [_P, _I, _I, _D, _D, _D, _I, _D, _D, _I,
+                                  _P, _I]),
 }
 
 
@@ -65,7 +72,7 @@ _lib: ctypes.CDLL | None = None
 
 
 def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu"))
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")])
 
 
 def library_path() -> pathlib.Path:
@@ -77,8 +84,8 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> BuildInfo:
-    """Compile every ``csrc/*.cu`` with one nvcc call (no-op when the library
-    for the current sources already exists)."""
+    """Compile every ``csrc/*.cu`` and ``csrc/*.cpp`` with one nvcc call
+    (no-op when the library for the current sources already exists)."""
     out = library_path()
     if out.exists():
         return BuildInfo(out, 0.0, (), cached=True)

@@ -20,9 +20,10 @@ Topic names follow the reference system:
   (Vector3StampedMsg, vx in m/s)
 - ``/optical_flow/image_live_feed|image_flow|image_mask`` (ImageMsg)
 
-Not ported yet (ROADMAP module item 3 and those it names): the video-file
-source, the junction detector node, the junction tracker and the adaptive
-backend.
+The junction detector runs on the host (``native.detect_junctions``), in
+process (:class:`JunctionDetectorNode`) or in its own process over the TCP
+bus bridge (``launch.bringup_junction_remote``).  Not ported yet (ROADMAP
+module item 3 d): the video-file source, which needs a video decoder.
 """
 from .bus import Bus, Subscription, ApproximateTimeSynchronizer
 from .messages import (
@@ -39,6 +40,7 @@ from .nodes import (
     FlowNode,
     DepthNode,
     JunctionMaskFlowNode,
+    JunctionDetectorNode,
     LKVelocityNode,
     NodeParams,
     make_farneback_backend,
@@ -57,6 +59,8 @@ from .fused import (
     make_fused_model_backend,
     measure_stream_latency,
 )
+from .junction_tracking import JunctionTracker
+from .adaptive import AdaptiveParams, make_adaptive_backend
 from .velocity import VelocityEstimator
 
 __all__ = [
@@ -75,6 +79,7 @@ __all__ = [
     "FlowNode",
     "DepthNode",
     "JunctionMaskFlowNode",
+    "JunctionDetectorNode",
     "LKVelocityNode",
     "NodeParams",
     "make_farneback_backend",
@@ -88,5 +93,8 @@ __all__ = [
     "make_fused_farneback_backend",
     "make_fused_model_backend",
     "measure_stream_latency",
+    "JunctionTracker",
+    "AdaptiveParams",
+    "make_adaptive_backend",
     "VelocityEstimator",
 ]

@@ -16,8 +16,9 @@ backend binds its device when it is built and makes it current in whatever
 thread runs it.  The nodes never pick a device.  Velocity estimation,
 depth/fx-driven scaling, junction masking, smoothing, debug-image topics
 and CSV timing hang off the node.  :class:`LKVelocityNode` is the sparse
-Lucas-Kanade counterpart.  The reference's junction-detector node (C++ on
-OpenCV) is not ported yet (ROADMAP module item 3).
+Lucas-Kanade counterpart, and :class:`JunctionDetectorNode` publishes the
+junctions the masked node (:class:`JunctionMaskFlowNode`) joins with its
+frames.
 """
 from __future__ import annotations
 
@@ -358,6 +359,48 @@ class JunctionMaskFlowNode(FlowNode):
         self._image_callback(img_msg, mask)
 
 
+class JunctionDetectorNode:
+    """Image in -> junction PointCloud out (the reference's C++ detector
+    node).  Publishes only when at least ``min_publish`` junctions are
+    found, as the reference does.  The detector is the compiled one unless
+    ``force_python`` asks for the plain one (``native.detect_junctions``);
+    ``rotated`` fits minimum-area rectangles to the cells."""
+
+    def __init__(self, bus: Bus, grid_area: float = 200.0, area_tol: float = 2.0,
+                 cluster_eps: float = 6.0, min_publish: int = 4,
+                 direct: bool = True, force_python: bool = False,
+                 rotated: bool = False):
+        from ..native import detect_junctions
+
+        self._detect = detect_junctions
+        self.bus = bus
+        self.grid_area = grid_area
+        self.area_tol = area_tol
+        self.cluster_eps = cluster_eps
+        self.min_publish = min_publish
+        self.force_python = force_python
+        self.rotated = rotated
+        self._sub = bus.subscribe("/camera/color/image_raw", self._callback,
+                                  direct=direct)
+
+    def stop(self) -> None:
+        self.bus.unsubscribe(self._sub)
+
+    def _callback(self, msg: ImageMsg):
+        img = msg.data
+        if img.ndim != 3 or img.shape[2] != 3:
+            return
+        pts = self._detect(
+            img, grid_area=self.grid_area, area_tol=self.area_tol,
+            cluster_eps=self.cluster_eps, force_python=self.force_python,
+            rotated=self.rotated,
+        )
+        if len(pts) >= self.min_publish:
+            self.bus.publish(
+                "/junction_detector/junctions", PointCloudMsg(msg.header, pts)
+            )
+
+
 class LKVelocityNode:
     """Sparse Lucas-Kanade velocity node: track good features between frames
     and publish the median (or mean) of their x-displacement as metric
@@ -477,15 +520,21 @@ def make_farneback_backend(*, device=None, **kwargs) -> Callable:
     """Farneback flow-node backend ``(prev, cur, dt) -> flow [H, W, 2]``
     numpy: ``classical.calc_optical_flow_farneback`` with ``kwargs`` on
     ``device`` (the card unless ``"cpu"`` is asked for), the frames being
-    the node's host-side BT.601 gray."""
+    the node's host-side BT.601 gray.  ``backend.flow_tensor`` is the same
+    call with the flow left on ``backend.device`` (what the adaptive
+    wrapper chains on the device)."""
     check_flow_kwargs("make_farneback_backend", kwargs)
     dev = resolve_device(device)
 
-    def backend(prev, cur, dt):
+    def flow_tensor(prev, cur, dt):
         with device_scope(dev):
-            flow = calc_optical_flow_farneback(prev, cur, device=dev, **kwargs)
-            return flow.cpu().numpy()
+            return calc_optical_flow_farneback(prev, cur, device=dev, **kwargs)
 
+    def backend(prev, cur, dt):
+        return flow_tensor(prev, cur, dt).cpu().numpy()
+
+    backend.device = dev
+    backend.flow_tensor = flow_tensor
     return backend
 
 
@@ -510,17 +559,22 @@ def make_model_backend(estimate_fn: Callable, bgr_to_rgb: bool = False, *,
     dev = resolve_device(device)
 
     def prep(frame) -> torch.Tensor:
-        x = torch.as_tensor(np.ascontiguousarray(frame)).to(dev)
-        x = x.float() / 255.0
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.as_tensor(np.ascontiguousarray(frame))
+        x = frame.to(dev).float() / 255.0
         if x.dim() == 2:
             return x[..., None].expand(*x.shape, 3)
         return x.flip(-1) if bgr_to_rgb else x
 
-    def backend(prev, cur, dt):
+    def flow_tensor(prev, cur, dt):
         with device_scope(dev):
             flow = estimate_fn(prep(prev), prep(cur))
-            return torch.nan_to_num(flow, nan=0.0, posinf=0.0,
-                                    neginf=0.0).cpu().numpy()
+            return torch.nan_to_num(flow, nan=0.0, posinf=0.0, neginf=0.0)
+
+    def backend(prev, cur, dt):
+        return flow_tensor(prev, cur, dt).cpu().numpy()
 
     backend.wants_color = True
+    backend.device = dev
+    backend.flow_tensor = flow_tensor
     return backend

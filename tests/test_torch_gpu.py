@@ -739,3 +739,94 @@ def test_eval_time_device_on_card(cuda):
     rows = [json.loads(line) for line in buf.getvalue().splitlines()]
     assert [r["timer"] in ("cuda_graph", "cuda_events") for r in rows] == [True, True]
     assert all(r["device_ms_per_frame"] > 0 for r in rows)
+
+
+# ------------------------------------------------ the junction pipeline
+def _drawn_fishnet(shift=0, H=240, W=320, cell=24):
+    """tests/test_launch.py's fishnet, drawn with the port's core/draw.py."""
+    from opticalflowcontainer_tpu_torch.core.draw import line
+
+    img = np.full((H, W + 64, 3), (180, 120, 60), np.uint8)
+    for y in range(12, H, cell):
+        line(img, (0, y), (W + 64, y), (30, 40, 50), 2)
+    for x in range(12, W + 64, cell):
+        line(img, (x, 0), (x, H), (30, 40, 50), 2)
+    return np.ascontiguousarray(img[:, 32 - shift:32 - shift + W])
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_compiled_detector_matches_plain(rotated, cuda):
+    """The compiled junction detector (host C++ built by the kernels' nvcc
+    call) against the plain one: the same junctions, in the same order,
+    within 1e-3 px, on the golden image and on a drawn fishnet; and on
+    blurred random images, where the cells are what the threshold makes of
+    noise."""
+    import pathlib
+
+    from opticalflowcontainer_tpu_torch.native import detect_junctions
+    from opticalflowcontainer_tpu_torch.utils.png import imread
+
+    golden = imread(str(pathlib.Path(__file__).parent / "data" / "fishnet_golden.png"))
+    rng = np.random.default_rng(4)
+    noise = rng.integers(0, 256, (90, 130, 3), dtype=np.uint8)
+    noise = ((noise.astype(np.float32) + np.roll(noise, 1, 0) + np.roll(noise, 1, 1)) / 3
+             ).astype(np.uint8)
+    for img, area in ((golden, 26.0 ** 2), (_drawn_fishnet(), 22.0 ** 2), (noise, 12.0)):
+        compiled = detect_junctions(img, grid_area=area, rotated=rotated)
+        plain = detect_junctions(img, grid_area=area, rotated=rotated, force_python=True)
+        assert compiled.shape == plain.shape
+        if len(plain):
+            assert np.abs(compiled - plain).max() <= 1e-3
+
+
+def test_bringup_junction_on_card_recovers_translation(cuda):
+    """bringup_junction with the compiled detector and Farneback on the card
+    recovers the fishnet's 2 px a frame, K1 and K2 running on every pair."""
+    from opticalflowcontainer_tpu_torch.runtime.launch import bringup_junction
+    from opticalflowcontainer_tpu_torch.runtime.messages import Header, ImageMsg
+
+    bus, node, det = bringup_junction(grid_area=22.0 ** 2, device=cuda)
+    node.vel.pixel_to_meter = 1.0
+    vels = []
+    bus.subscribe("/optical_flow/JUNCTION_velocity", lambda m: vels.append(m.x))
+    k1.farneback_update.launches = 0
+    for f in range(6):
+        bus.publish("/camera/color/image_raw", ImageMsg(Header(float(f)), _drawn_fishnet(2 * f)))
+    node.stop()
+    assert len(vels) == 5 and abs(np.mean(vels) - 2.0) < 0.3, vels
+    assert k1.farneback_update.launches == 5 * (fb._num_levels(240, 320, 2, 0.5) + 1) * 2
+
+
+def test_adaptive_backend_on_card_matches_cpu(cuda):
+    """make_adaptive_backend around Farneback: the card against the CPU at
+    the port's parity bar (mean 1e-3, max 1e-2 px)."""
+    from opticalflowcontainer_tpu_torch.runtime.adaptive import (
+        AdaptiveParams, make_adaptive_backend)
+    from opticalflowcontainer_tpu_torch.runtime.nodes import make_farneback_backend
+
+    rng = np.random.default_rng(6)
+    base = rng.uniform(0, 255, (100, 150)).astype(np.float32)
+    prev, cur = base[:, :128], base[:, 2:130]
+    params = AdaptiveParams(flow_median_ksize=3, flow_max_mag=50.0)
+    got = make_adaptive_backend(make_farneback_backend(device=cuda), params)(prev, cur, 0.03)
+    want = make_adaptive_backend(make_farneback_backend(device="cpu"), params)(prev, cur, 0.03)
+    d = np.abs(got - want)
+    assert d.mean() <= 1e-3 and d.max() <= 1e-2, (d.mean(), d.max())
+
+
+def test_ingest_and_prefetch_on_card(cuda):
+    """preprocess_frames on the card equals the CPU's within 1e-6 of the
+    0-1 scale, and DevicePrefetcher yields the source's bytes in order."""
+    from opticalflowcontainer_tpu_torch.core.ingest import preprocess_frames
+    from opticalflowcontainer_tpu_torch.runtime.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (3, 48, 64, 3), dtype=np.uint8)
+    got = preprocess_frames(frames, out_hw=(24, 32), to_gray=True, device=cuda)
+    want = preprocess_frames(frames, out_hw=(24, 32), to_gray=True, device="cpu")
+    assert got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max() <= 1e-6
+    items = [{"img": f, "i": i} for i, f in enumerate(frames)]
+    out = list(DevicePrefetcher(iter(items), device=cuda))
+    assert [o["i"] for o in out] == [0, 1, 2]
+    assert all(np.array_equal(o["img"].cpu().numpy(), f) for o, f in zip(out, frames))

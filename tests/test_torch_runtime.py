@@ -525,8 +525,6 @@ def test_exports_are_the_jax_names_less_what_waits():
     assert port <= ref
     roadmap = (pathlib.Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
     missing = sorted(ref - port)
-    assert missing == ["AdaptiveParams", "JunctionDetectorNode",
-                       "JunctionTracker", "VideoFileSource",
-                       "make_adaptive_backend"]
+    assert missing == ["VideoFileSource"]
     assert all(name in roadmap for name in missing)
     assert all(getattr(trt, name) is not None for name in port)
