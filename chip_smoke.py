@@ -125,7 +125,25 @@ seconds:
    median 3, the magnitude mask), the card against the CPU and ms a frame
    with and without it; preprocess_frames, the card against the CPU; and
    DevicePrefetcher over 100 frames (order and bytes; under the profiler
-   its copies on its side stream).
+   its copies on its side stream);
+25. the scale-out: one NCCL rank in this process on a 1x1 mesh runs the
+   sharded flow, spatial and stream callables at [2, 1080, 1920] (BASELINE
+   config 5's frames, cv2's defaults), each against farneback_batched /
+   farneback_stream_step (1e-5 px; K1/K2 launch inside each as in the
+   unsharded call), and the sharded RAFT-small train step (full width,
+   seeded, B=8, 96x128, iters=8, 5 steps) against train_step step by step
+   from the same state (each loss within 1e-5, each update within 1e-6
+   where the gradient counts); then two spawned ranks on the one card
+   (gloo: NCCL refuses two ranks on a device) run the three inference
+   legs on meshes (2, 1) and (1, 2), each against the one-rank results;
+   the sharded and unsharded ms and the collectives' share;
+26. the stage roofline: tools/stage_roofline.py at its defaults (720p, T=5,
+   64 calls a timed graph): the ceilings measured on
+   the card (HBM reads at 128-1024 MB, read+write at 256 MB and inside the
+   L2, matmuls in fp32/TF32/bf16, an FMA chain) below the data sheet, every
+   leg finite, and no stage's GB/s above 105% of the measured HBM
+   read+write ceiling (a reading over it is a wrong byte count), or of the
+   L2's for a stage whose whole traffic in a call fits in the L2.
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
@@ -2606,6 +2624,20 @@ def exact_convolutions(torch):
         cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """PyTorch's deterministic algorithms for the block (cuDNN's
+    deterministic convolutions, a gather's backward without atomics);
+    an operation that has none warns and runs as it would."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
 def train_grads(torch, model, loss_fn, batch):
     loss = loss_fn(model, batch)
     params = [p for p in model.parameters() if p.requires_grad]
@@ -3143,6 +3175,293 @@ def prefetch_checks(torch, dev, trace_dir, n=100) -> None:
             "every recorded copy ran on the side stream, none on the consumer's")
 
 
+
+# ------------------------------------------------- phase 25: scale-out
+
+SCALEOUT_TOL = 1e-5  # px: the sharded program against the unsharded one
+
+
+def max_gap(torch, got, want) -> float:
+    return float((torch.as_tensor(got).cpu() - torch.as_tensor(want).cpu()).abs().max())
+
+
+def scaleout_one_rank(torch, dev, frames, g0, g1, init_method) -> tuple:
+    """One NCCL rank in this process, a 1x1 mesh: the three inference legs
+    at 1080p and the sharded RAFT-small train step, each against the
+    unsharded program.  Returns (the reference results, each leg's K1/K2
+    launches)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.parallel import (
+        batch_sharding, init_distributed, local_shard, make_mesh,
+        make_sharded_flow_fn, make_sharded_stream_fn, make_sharded_train_step,
+        make_spatial_sharded_flow_fn)
+    from opticalflowcontainer_tpu_torch.parallel.train import (
+        TrainState, make_optimizer, train_step)
+    from opticalflowcontainer_tpu_torch.tools.train_flow import make_affine_batch
+
+    init_distributed(0, 1, init_method, device_type="cuda")
+    by_path = {}
+    try:
+        mesh = make_mesh(1, data=1, model=1)
+        require(dist.get_backend(mesh.get_group("data")) == "nccl",
+                "the 1x1 mesh runs NCCL")
+        rows = batch_sharding(mesh)
+        prev, cur = frames[0::2].contiguous(), frames[1::2].contiguous()
+        flow_fn = functools.partial(fb.farneback_batched, device=dev)
+
+        def counted(path, fn):
+            reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            by_path[path] = kernel_counts()
+            return out
+
+        flow_ref = counted("farneback_batched_2x1080p", lambda: flow_fn(prev, cur))
+        sharded = make_sharded_flow_fn(flow_fn, mesh)
+        flow_s, mean_u = counted("sharded_flow_fn", lambda: sharded(
+            local_shard(prev, mesh, rows), local_shard(cur, mesh, rows)))
+        d = max_gap(torch, flow_s, flow_ref)
+        mean_ref = float(flow_ref[..., 0].mean())
+        print(f"sharded flow [2, 1080, 1920], 1x1 NCCL mesh: max|d| {d:.3e} px "
+              f"against farneback_batched (bitwise: {bool(torch.equal(flow_s, flow_ref))}; "
+              f"bar {SCALEOUT_TOL}); mean_u {float(mean_u):.6f}, the flow's mean "
+              f"{mean_ref:.6f}; K1/K2 launches {by_path['sharded_flow_fn']} "
+              f"(unsharded {by_path['farneback_batched_2x1080p']})")
+        require(d <= SCALEOUT_TOL, "the sharded flow equals the unsharded one")
+        require(abs(float(mean_u) - mean_ref) <= 1e-5 * max(abs(mean_ref), 1e-3),
+                "mean_u is the flow's mean")
+        require(by_path["sharded_flow_fn"] == by_path["farneback_batched_2x1080p"]
+                and by_path["sharded_flow_fn"]["farneback_update"] > 0,
+                "K1/K2 launch inside the sharded flow fn as in the unsharded call")
+        flow_ms = cuda_ms(lambda: sharded(prev, cur), reps=5)
+        plain_ms = cuda_ms(lambda: flow_fn(prev, cur), reps=5)
+        stats = torch.zeros(2, device=dev)
+        coll_ms = cuda_ms(lambda: dist.all_reduce(stats, group=mesh.get_group("data")),
+                          reps=20)
+        print(f"  sharded {flow_ms:.3f} ms, unsharded {plain_ms:.3f} ms a call "
+              f"(events); the all-reduce {coll_ms:.4f} ms, "
+              f"{coll_ms / flow_ms:.2%} of the sharded call")
+
+        spatial = make_spatial_sharded_flow_fn(flow_fn, mesh)
+        band = batch_sharding(mesh, spatial_dim=1)
+        flow_sp = counted("spatial_sharded_flow_fn", lambda: spatial(
+            local_shard(prev, mesh, band), local_shard(cur, mesh, band)))
+        d = max_gap(torch, flow_sp, flow_ref)
+        print(f"spatial-sharded flow, 1x1 mesh: max|d| {d:.3e} px; launches "
+              f"{by_path['spatial_sharded_flow_fn']}")
+        require(d <= SCALEOUT_TOL, "the spatial-sharded flow equals the unsharded one")
+        require(by_path["spatial_sharded_flow_fn"] == by_path["farneback_batched_2x1080p"],
+                "K1/K2 launch inside the spatial form as in the unsharded call")
+
+        state = fb.farneback_stream_planes(g0, device=dev)
+        flow_st, _ = counted("farneback_stream_step_2x1080p",
+                             lambda: fb.farneback_stream_step(state, g1, device=dev))
+        du_ref = flow_st[..., 0].mean(dim=(1, 2))
+        stream = make_sharded_stream_fn(mesh)
+        du, _ = counted("sharded_stream_fn", lambda: stream(state, g1))
+        d = max_gap(torch, du, du_ref)
+        print(f"sharded stream, 2 streams at 1080p: du {du.tolist()}, max|d| "
+              f"{d:.3e} px against farneback_stream_step; launches "
+              f"{by_path['sharded_stream_fn']}")
+        require(d <= SCALEOUT_TOL, "the sharded stream's du equals the step's")
+        require(by_path["sharded_stream_fn"] == by_path["farneback_stream_step_2x1080p"]
+                and by_path["sharded_stream_fn"]["blur_solve"] > 0,
+                "K1/K2 launch inside the sharded stream fn")
+        stream_ms = cuda_ms(lambda: stream(state, g1), reps=5)
+        print(f"  sharded stream {stream_ms:.3f} ms a step (events)")
+
+        # the sharded train step on RAFT-small at full width against the
+        # plain train_step on the same batches: step by step from the same
+        # state (the plain state loaded from the sharded one before each
+        # step) with deterministic algorithms, so that the two updates
+        # differ by the step's code alone; then both free-running from the
+        # init, in the default algorithms, beside a second plain run, whose
+        # gap to the first is the backward's own noise (cuDNN's weight
+        # gradients and the lookup's scatter-adds sum in no fixed order)
+        model = trainer_init(torch, "raft_small", dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        init = copy.deepcopy(model.state_dict())
+
+        def fresh():
+            m = trainer_init(torch, "raft_small", dev)
+            m.load_state_dict(init)
+            return TrainState(m, make_optimizer(dict(m.named_parameters())))
+
+        tstate = TrainState(model, make_optimizer(dict(model.named_parameters())))
+        step = make_sharded_train_step(tstate, mesh, iters=8)
+        plain = fresh()
+        rng = np.random.default_rng(29)
+        batches = [make_affine_batch(rng, 8, 96, 128) for _ in range(5)]
+        gaps, param_gaps, losses = [], [], []
+        with deterministic_algorithms(torch):
+            for b in batches:
+                plain.model.load_state_dict(tstate.model.state_dict())
+                plain.optimizer.load_state_dict(tstate.optimizer.state_dict())
+                tstate, loss = step(tstate, b)
+                plain, ploss = train_step(plain, b, iters=8)
+                losses.append(float(loss))
+                gaps.append(abs(float(loss) - float(ploss)) / abs(float(ploss)))
+                # the updates where the gradient is above 1e-3 of the largest
+                # (elsewhere Adam's step is lr times the sign of rounding noise)
+                named = dict(plain.model.named_parameters())
+                gmax = max(float(p.grad.abs().max()) for p in tstate.model.parameters())
+                param_gaps.append(max(
+                    float(torch.where(p.grad.abs() > 1e-3 * gmax,
+                                      (p.detach() - named[n].detach()).abs(), 0.0).max())
+                    for n, p in tstate.model.named_parameters()))
+        free = [fresh(), fresh()]
+        free_losses = [[float(train_step(s, b, iters=8)[1]) for b in batches]
+                       for s in free]
+        drift = [abs(a - c) / abs(c) for a, c in zip(losses, free_losses[0])]
+        noise = [abs(a - c) / abs(c) for a, c in zip(*free_losses)]
+        print(f"sharded train step, RAFT-small ({n_params} parameters), B=8, "
+              f"96x128, iters=8: losses {[round(x, 5) for x in losses]}; step "
+              f"by step from the same state, relative gaps to train_step "
+              f"{[f'{g:.1e}' for g in gaps]} (bar 1e-5), largest update gap "
+              f"{max(param_gaps):.1e} (bar 1e-6); free-running, sharded vs plain "
+              f"{[f'{g:.1e}' for g in drift]}, plain vs plain "
+              f"{[f'{g:.1e}' for g in noise]}")
+        require(n_params == 990162, "RAFT-small at full width")
+        require(all(np.isfinite(losses)) and max(gaps) <= 1e-5,
+                "each sharded loss within 1e-5 of train_step's")
+        require(max(param_gaps) <= 1e-6, "each sharded update equals train_step's")
+        b = batches[0]
+        t_sh = cuda_ms(lambda: step(tstate, b), reps=3, warmup=1)
+        t_pl = cuda_ms(lambda: train_step(free[0], b, iters=8), reps=3, warmup=1)
+        bucket = torch.zeros(n_params + 1, device=dev)
+        t_ar = cuda_ms(lambda: dist.all_reduce(bucket, group=mesh.get_group("data")),
+                       reps=20)
+        print(f"  sharded step {t_sh:.2f} ms, train_step {t_pl:.2f} ms (events); "
+              f"the gradient all-reduce {t_ar:.4f} ms, {t_ar / t_sh:.2%} of the step")
+    finally:
+        dist.destroy_process_group()
+    return {"flow": flow_ref, "du": du_ref}, by_path
+
+
+def scaleout_two_ranks(torch, frames, g0, g1, ref) -> None:
+    """Two spawned ranks on the one card (gloo: NCCL refuses two ranks on
+    one device), meshes (2, 1) and (1, 2) through the three inference
+    legs, each against the 1-rank results."""
+    from opticalflowcontainer_tpu_torch.parallel.dryrun import spawn
+
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    fb_kw = {}
+    payload = {"meshes": [(2, 1), (1, 2)], "reps": 3,
+               "flow": {"kw": fb_kw, "prev": host(frames[0::2]), "cur": host(frames[1::2])},
+               "spatial": {"kw": fb_kw, "prev": host(frames[0::2]), "cur": host(frames[1::2])},
+               "stream": {"kw": fb_kw, "g0": host(g0), "g1": host(g1)}}
+    t0 = time.perf_counter()
+    ranks = spawn(2, "infer", payload, cpu=False, backend="gloo", threads=None,
+                  timeout_s=300)
+    print(f"two ranks on one card (gloo), spawned and run in "
+          f"{time.perf_counter() - t0:.1f} s")
+    want = {"flow": host(ref["flow"]), "du": host(ref["du"])}
+    for i, (data, model) in enumerate(payload["meshes"]):
+        per = [r[i] for r in ranks]
+        # rebuild the global arrays: batch rows on data; a model group's
+        # ranks hold the same rows
+        firsts = [per[r * model] for r in range(data)]
+        flow = np.concatenate([p["flow"] for p in firsts])
+        spatial = np.concatenate([p["spatial"] for p in firsts])
+        du = np.concatenate([p["du"] for p in firsts])
+        gaps = {"flow": float(np.abs(flow - want["flow"]).max()),
+                "spatial": float(np.abs(spatial - want["flow"]).max()),
+                "stream": float(np.abs(du - want["du"]).max())}
+        mean_u = [p["mean_u"] for p in per]
+        print(f"mesh ({data}, {model}): max|d| against one rank {gaps}; mean_u "
+              f"{mean_u}; K1/K2 launches by rank {[p['launches'] for p in per]}")
+        for r, p in enumerate(per):
+            print(f"  rank {r}: ms {p['ms']}, collectives alone "
+                  f"{p['collective_ms']}")
+        require(max(gaps.values()) <= SCALEOUT_TOL,
+                f"mesh ({data}, {model}) equals the one-rank result")
+        require(all(abs(m - float(want["flow"][..., 0].mean())) <= 1e-5
+                    * max(abs(float(want["flow"][..., 0].mean())), 1e-3)
+                    for m in mean_u), "every rank's mean_u is the global mean")
+        require(all(p["launches"][leg]["farneback_update"] > 0 for p in per
+                    for leg in ("flow", "spatial", "stream")),
+                "K1/K2 launch in every rank's legs")
+
+
+def scaleout_phase(torch, dev) -> dict:
+    """Phase 25, the scale-out on the card: one NCCL rank in process (a 1x1
+    mesh) at BASELINE config 5's frames, then two ranks on the one card."""
+    H, W = 1080, 1920
+    frames = plane_waves(torch, H, W, [(1.25 * t, -0.6 * t) for t in range(4)],
+                         seed=31, device=dev)
+    g0, g1 = frames[0::2].contiguous(), frames[1::2].contiguous()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, by_path = scaleout_one_rank(torch, dev, frames, g0, g1,
+                                         f"file://{tmp}/store")
+    scaleout_two_ranks(torch, frames, g0, g1, ref)
+    return by_path
+
+
+# ------------------------------------------- phase 26: the stage roofline
+
+def roofline_phase(torch, trace_dir) -> None:
+    """Phase 26: tools.stage_roofline at its defaults (720p, T=5, 64 calls
+    a graph: a few seconds, so nothing is cut); every leg finite, the
+    measured ceilings below the data sheet, no stage above 105% of the
+    measured HBM read+write ceiling, unless all it moves in a call (each
+    array it reads and writes, once) fits in the L2: replayed, such a
+    stage is served from the L2 and is held to the L2's ceiling."""
+    from opticalflowcontainer_tpu_torch.tools import stage_roofline as sr
+
+    out_dir = trace_dir or tempfile.mkdtemp()
+    path = os.path.join(out_dir, "stage_roofline.json")
+    if os.path.exists(path):
+        os.remove(path)
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        sr.main(["--out", path])
+    with open(path) as f:
+        legs = [json.loads(line) for line in f]
+    by = {leg["leg"]: leg for leg in legs}
+    print(f"stage roofline: {len(legs)} legs ({by['device']['card']}, "
+          f"graph replay, {by['device']['reps']} calls a graph)")
+    numbers = [v for leg in legs for k, v in leg.items()
+               if isinstance(v, float)]
+    require(all(np.isfinite(numbers)), "every leg finite")
+    ds = sr.DATASHEET
+    ceil = {k: by[f"ceiling_{k}"] for k in ("read_128mb", "read_512mb",
+                                          "read_1024mb", "rw_256mb",
+                                          "rw_l2_16mb", "matmul_fp32",
+                                          "matmul_tf32", "matmul_bf16",
+                                          "fma_fp32")}
+    for k, leg in ceil.items():
+        rate = leg.get("gbps", leg.get("tflops"))
+        unit = "GB/s" if "gbps" in leg else "TFLOP/s"
+        print(f"  ceiling {k}: {rate:.1f} {unit} ({leg['ms_per_rep']:.4f} ms a rep)")
+    for k in ("read_128mb", "read_512mb", "read_1024mb", "rw_256mb"):
+        require(ceil[k]["gbps"] < ds["hbm_gbps"], f"{k} below the data sheet")
+    for k, sheet in (("matmul_fp32", "fp32_tflops"), ("matmul_tf32", "tf32_tflops"),
+                     ("matmul_bf16", "bf16_tflops"), ("fma_fp32", "fp32_tflops")):
+        require(ceil[k]["tflops"] < ds[sheet], f"{k} below the data sheet")
+    hbm, l2 = ceil["rw_256mb"]["gbps"], ceil["rw_l2_16mb"]["gbps"]
+    l2_mb = by["device"]["l2_mb"]
+    stages = [leg for leg in legs if leg["leg"].split("_")[0] in
+              ("poly", "update", "solve", "resize", "full")]
+    total = by["full_clip"]["ms"]
+    over = []
+    for leg in stages:
+        print(f"  {leg['leg']:10s} {leg['ms']:.4f} ms ({leg['ms'] / total:.1%} of "
+              f"the clip call), {leg['model_mb']:.1f} MB, {leg['gbps']:.1f} GB/s: "
+              f"{leg['gbps'] / hbm:.1%} of the measured HBM read+write ceiling, "
+              f"{leg['gbps'] / l2:.1%} of the L2's, {leg['of_datasheet']:.1%} of "
+              f"the data sheet")
+        if leg["gbps"] > 1.05 * (l2 if leg["model_mb"] <= l2_mb else hbm):
+            over.append(leg["leg"])
+    require(not over, f"no stage above 105% of the measured read+write ceiling: "
+                      f"the HBM's, the L2's where all it moves fits in the "
+                      f"{l2_mb:.1f} MB L2 ({over})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3222,6 +3541,10 @@ def main() -> int:
         by_path.update(training_phase(torch, dev))
     with phase("24 junction pipeline 640x480"):
         by_path.update(junction_pipeline_phase(torch, dev, args.trace))
+    with phase("25 scale-out (1-rank NCCL mesh at 2x1080p and RAFT-small, two ranks on one card)"):
+        by_path.update(scaleout_phase(torch, dev))
+    with phase("26 stage roofline 720p T=5 (measured ceilings)"):
+        roofline_phase(torch, args.trace)
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

@@ -18,8 +18,9 @@ Layout is plane-major ([N, 5, lh, lw] expansion planes) and storage fp32.
 
 The clip and stream entry points expand every frame once per level and
 share the planes between its two pairs.  The reference's TPU-layout gates
-(``CLIP_SHARE_ALL_MAX_PIXELS``, ``BLOCK_WARP_R0SRC``, the traffic model) have
-no counterpart: there is one mode.
+(``CLIP_SHARE_ALL_MAX_PIXELS``, ``BLOCK_WARP_R0SRC``) have no counterpart:
+there is one mode.  :func:`farneback_traffic_breakdown` counts the bytes
+this module's own stages move.
 """
 from __future__ import annotations
 
@@ -314,3 +315,108 @@ def farneback_stream_step(prev_planes, gray, pyr_scale: float = 0.5,
                          None, dev)
     flow = torch.stack([u, v], dim=-1)
     return (flow if batched else flow[0]), tuple(new_planes)
+
+
+def _corr_passes(taps: int) -> int:
+    """fp32 passes over the output of :func:`~..core.filters._corr1d` with
+    ``taps`` taps: a multiply per tap (read, write) and an add per tap
+    after the first (two reads, a write)."""
+    return 2 * taps + 3 * (taps - 1)
+
+
+def _pad_passes(rows: int, cols: int, p: int) -> int:
+    """Values moved by ``_pad2d`` of [rows, cols] by p: one gather of the
+    rows, one of the columns (each output value read and written)."""
+    return 2 * (rows + 2 * p) * cols + 2 * (rows + 2 * p) * (cols + 2 * p)
+
+
+def _resize_passes(src: tuple, dst: tuple) -> int:
+    """Values moved by ``resize_bilinear`` from [src] to [dst]: per resized
+    axis two gathers (read, write), two weightings (read, write) and an add
+    (two reads, a write) over that pass's output."""
+    (h0, w0), (h1, w1) = src, dst
+    moved = 0
+    if h1 != h0:
+        moved += 11 * h1 * w0
+    if w1 != w0:
+        moved += 11 * h1 * w1
+    return moved
+
+
+def farneback_traffic_breakdown(H: int, W: int, levels: int = 3,
+                                pyr_scale: float = 0.5, iterations: int = 3,
+                                clip_frames: int | None = 5, *,
+                                oob_share: float = 0.0) -> dict:
+    """Device-memory bytes per computed flow field of this module's
+    pipeline, by stage and by pyramid level: the numerator of the stage
+    roofline (``tools/stage_roofline.py``).  Same name and keys as the
+    reference's, counting the port's own traffic, every array fp32:
+
+    - ``poly``, the prep stage of each level, as the shifted-slice sums run
+      it: the reflect101 blur at full resolution (its pads, ``smooth_sz``
+      taps down, then across), the bilinear resize to the level, and the
+      polynomial expansion at cv2's default ``poly_n`` = 5, which every
+      timed caller uses (its replicate pads, three vertical and six
+      horizontal correlations of 11 taps, the five planes' weighted sums
+      and their stack).  Every elementwise operation counts
+      its inputs read and its output written once.  A clip of
+      ``clip_frames`` frames expands each frame once for T - 1 fields (the
+      port shares every level); pairs (``None``) expand two frames a field;
+    - ``update``, K1's exact warp: R0's 5 planes, u, v and M's 5 per pixel,
+      and R1's 5 where the sample is in bounds (``oob_share`` of the pixels
+      are not: their R1 is not read; 0 counts every pixel), 68 bytes a
+      pixel at most;
+    - ``solve``, K2: M in, u and v out, 28 bytes a pixel (M's round trip
+      between the two kernels is K1's write and K2's read);
+    - ``resize``, the flow between levels: the coarsest level's zero u, v
+      and each finer level's two resizes and scalings.  The final stack of
+      (u, v) into the flow array is not counted.
+
+    The reference's TPU counts (tile-quantized patch DMAs, phase copies,
+    bf16 planes) have no counterpart here.  Returns ``{"poly", "update",
+    "solve", "resize", "total", "levels": [{"k", "lh", "lw", "poly",
+    "poly_per_expansion", "update_per_iter", "solve_per_iter", "resize"},
+    ...]}`` in bytes per field, coarsest level first; the per-iteration
+    entries are per field and per iteration."""
+    T = clip_frames
+    if T is not None and T < 2:
+        raise ValueError(f"clip_frames={T}: need >= 2 frames (T-1 fields)")
+    if not 0.0 <= oob_share <= 1.0:
+        raise ValueError(f"oob_share={oob_share} is not a share")
+    exp = T / (T - 1.0) if T else 2.0
+    poly_n = 5
+    taps = 2 * poly_n + 1
+    f32 = 4
+    n_levels = _num_levels(H, W, levels, pyr_scale)
+    out = {"poly": 0.0, "update": 0.0, "solve": 0.0, "resize": 0.0,
+           "levels": []}
+    prev_size = None
+    for k in range(n_levels, -1, -1):
+        scale = pyr_scale**k
+        lh, lw = _level_size(H, W, scale)
+        n = lh * lw
+        ks = max(int(round((1.0 / scale - 1.0) * 0.5 * 5)) | 1, 3)
+        p = ks // 2
+        blur = (_pad_passes(H, W, p) + _corr_passes(ks) * H * (W + 2 * p)
+                + _corr_passes(ks) * H * W)
+        expand = (_pad_passes(lh, lw, poly_n)
+                  + 3 * _corr_passes(taps) * lh * (lw + 2 * poly_n)
+                  + 6 * _corr_passes(taps) * n + 30 * n)
+        poly = f32 * (blur + _resize_passes((H, W), (lh, lw)) + expand)
+        upd = f32 * (12 + 5 * (1.0 - oob_share)) * n
+        slv = f32 * 7 * n
+        if prev_size is None:
+            rsz = f32 * 2 * n  # the zero u, v
+        else:  # u and v: resized, then divided by pyr_scale
+            rsz = f32 * 2 * (_resize_passes(prev_size, (lh, lw)) + 2 * n)
+        prev_size = (lh, lw)
+        out["poly"] += exp * poly
+        out["update"] += iterations * upd
+        out["solve"] += iterations * slv
+        out["resize"] += rsz
+        out["levels"].append({
+            "k": k, "lh": lh, "lw": lw, "poly": exp * poly,
+            "poly_per_expansion": poly, "update_per_iter": upd,
+            "solve_per_iter": slv, "resize": rsz})
+    out["total"] = out["poly"] + out["update"] + out["solve"] + out["resize"]
+    return out

@@ -23,8 +23,9 @@ the models NCHW tensors.  Unlike the reference, which ``vmap``s a
 per-sample loss and takes the mean, the models run on the batch; every
 loss here is a mean over equally sized samples, so the two agree.
 
-The sharded step (``make_sharded_train_step``) waits for the port's
-``torch.distributed`` slice.
+:func:`make_sharded_train_step` is the step over a ``("data", "model")``
+mesh (``mesh.py``): each rank's batch rows, the gradients averaged over
+the ``data`` group before the clip.
 """
 from __future__ import annotations
 
@@ -34,9 +35,11 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.common import flax_init
+from .mesh import all_gather_cat, mesh_device
 
 
 # optax.adamw's defaults, which every caller of the reference keeps
@@ -183,11 +186,15 @@ def sequence_loss(flows: torch.Tensor, gt: torch.Tensor,
     return (weights * err).sum()
 
 
-def descend(state: TrainState, loss: torch.Tensor) -> TrainState:
-    """One optimizer step on ``loss``: its gradients, the update, the
-    count."""
+def descend(state: TrainState, loss: torch.Tensor,
+            reduce: Callable[[], None] | None = None) -> TrainState:
+    """One optimizer step on ``loss``: its gradients, ``reduce()`` on them
+    where given (the sharded step's average over ranks, before the
+    update's clip), the update, the count."""
     state.optimizer.zero_grad()
     loss.backward()
+    if reduce is not None:
+        reduce()
     state.optimizer.step()
     state.step += 1
     return state
@@ -202,3 +209,58 @@ def train_step(state: TrainState, batch: Mapping,
     b = batch_to_device(batch, next(model.parameters()).device)
     loss = sequence_loss(model(b["img1"], b["img2"], iters), b["flow"])
     return descend(state, loss), loss.detach()
+
+
+def make_sharded_train_step(state: TrainState, mesh, iters: int = 4,
+                            shard_spatial: bool = True) -> Callable:
+    """The reference's ``make_sharded_train_step`` over ``mesh``: returns
+    ``(state, batch) -> (state, loss)`` for this rank's block of the
+    global batch (reference layout; rows on ``data``, and with
+    ``shard_spatial`` on a mesh with ``model > 1`` a band of the height on
+    ``model``).
+
+    - Parameters stay replicated: every rank holds the same model and
+      optimizer and takes the same update.
+    - With ``shard_spatial`` and ``model > 1`` each rank first gathers its
+      rows' full height over the ``model`` group (the ranks of a group then
+      compute the same rows; exchanging only halos is later work).
+    - The gradients, and the loss with them, are summed over the ``data``
+      group in one flattened bucket and divided by its size, **before**
+      :class:`AdamW` clips by the global norm: the reference clips the
+      gradient of the global-mean loss; averaging after the clip would be
+      another optimizer.
+    - The loss returned is the global mean.
+
+    The step reads the parameters from the state it is passed, so a state
+    restored from a checkpoint steps as well; ``state`` here only mirrors
+    the reference's signature."""
+    data_group = mesh.get_group("data")
+    model_group = mesh.get_group("model")
+    gather = shard_spatial and mesh.size(1) > 1
+    n_data = mesh.size(0)
+    device = mesh_device(mesh)
+
+    def step(state: TrainState, batch: Mapping):
+        b = batch_to_device(batch, device)
+        if gather:  # NCHW: the height is dim 2
+            b = {k: all_gather_cat(v, model_group, 2) for k, v in b.items()}
+        loss = sequence_loss(state.model(b["img1"], b["img2"], iters), b["flow"])
+        mean = loss.detach().clone().reshape(1)
+
+        @torch.no_grad()
+        def average():
+            params = list(state.optimizer.params.values())
+            bucket = torch.cat([p.grad.reshape(-1) if p.grad is not None
+                                else torch.zeros(p.numel(), device=p.device)
+                                for p in params] + [mean])
+            dist.all_reduce(bucket, group=data_group)
+            bucket.div_(n_data)
+            offset = 0
+            for p in params:
+                p.grad = bucket[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+            mean.copy_(bucket[-1:])
+
+        return descend(state, loss, average), mean[0]
+
+    return step

@@ -830,3 +830,95 @@ def test_ingest_and_prefetch_on_card(cuda):
     out = list(DevicePrefetcher(iter(items), device=cuda))
     assert [o["i"] for o in out] == [0, 1, 2]
     assert all(np.array_equal(o["img"].cpu().numpy(), f) for o, f in zip(out, frames))
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A 1x1 ("data", "model") mesh over one NCCL rank on the card."""
+    from opticalflowcontainer_tpu_torch import parallel
+
+    parallel.init_distributed(0, 1, f"file://{tmp_path}/store", timeout_s=60)
+    try:
+        yield parallel.make_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _pairs(cuda, B=2, H=96, W=128):
+    rng = np.random.default_rng(12)
+    base = rng.uniform(0, 255, (B, H + 4, W + 4)).astype(np.float32)
+    prev = torch.from_numpy(base[:, 2:2 + H, 2:2 + W].copy()).to(cuda)
+    cur = torch.from_numpy(base[:, 1:1 + H, 3:3 + W].copy()).to(cuda)
+    return prev, cur
+
+
+def test_sharded_legs_on_a_one_rank_nccl_mesh(one_rank_mesh, cuda):
+    """The three inference legs equal the unsharded calls bit for bit on a
+    1x1 NCCL mesh, K1/K2 launching inside each as in the unsharded call."""
+    import functools
+
+    from opticalflowcontainer_tpu_torch import parallel
+
+    mesh = one_rank_mesh
+    assert torch.distributed.get_backend(mesh.get_group("data")) == "nccl"
+    prev, cur = _pairs(cuda)
+    flow_fn = functools.partial(fb.farneback_batched, device=cuda)
+    n0 = k1.farneback_update.launches
+    want = flow_fn(prev, cur)
+    per_call = k1.farneback_update.launches - n0
+    flow, mean_u = parallel.make_sharded_flow_fn(flow_fn, mesh)(prev, cur)
+    assert k1.farneback_update.launches - n0 == 2 * per_call > 0
+    assert torch.equal(flow, want)
+    assert float(mean_u) == pytest.approx(float(want[..., 0].mean()), rel=1e-5)
+    assert torch.equal(parallel.make_spatial_sharded_flow_fn(flow_fn, mesh)(prev, cur), want)
+    state = fb.farneback_stream_planes(prev, device=cuda)
+    step, _ = fb.farneback_stream_step(state, cur, device=cuda)
+    du, state2 = parallel.make_sharded_stream_fn(mesh)(state, cur)
+    assert torch.equal(du, step[..., 0].mean(dim=(1, 2)))
+    assert [s.shape for s in state2] == [s.shape for s in state]
+
+
+def test_sharded_train_step_on_a_one_rank_nccl_mesh(one_rank_mesh, cuda):
+    """The first loss of the sharded step equals train_step's from the same
+    parameters (one rank: the all-reduce sums one gradient)."""
+    import copy
+
+    from opticalflowcontainer_tpu_torch import parallel
+    from opticalflowcontainer_tpu_torch.parallel import dryrun
+    from opticalflowcontainer_tpu_torch.tools.train_flow import make_affine_batch
+
+    model = dryrun.raft_small(None, cuda)
+    twin = copy.deepcopy(model)
+    state = parallel.TrainState(model, parallel.make_optimizer(dict(model.named_parameters())))
+    plain = parallel.TrainState(twin, parallel.make_optimizer(dict(twin.named_parameters())))
+    batch = make_affine_batch(np.random.default_rng(5), 2, 64, 64)
+    step = parallel.make_sharded_train_step(state, one_rank_mesh, iters=2)
+    state, loss = step(state, batch)
+    plain, want = parallel.train_step(plain, batch, iters=2)
+    assert loss.device.type == "cuda" and float(loss) == float(want)
+    assert state.step == plain.step == 1
+
+
+def test_two_ranks_on_one_card_match_one_rank(cuda):
+    """Two spawned ranks sharing the card over gloo, meshes (2, 1) and
+    (1, 2): each leg's blocks rebuild the unsharded result."""
+    from opticalflowcontainer_tpu_torch.parallel import dryrun
+
+    prev, cur = _pairs(cuda)
+    want = fb.farneback_batched(prev, cur, device=cuda).cpu().numpy()
+    state = fb.farneback_stream_planes(prev, device=cuda)
+    step, _ = fb.farneback_stream_step(state, cur, device=cuda)
+    du = step[..., 0].mean(dim=(1, 2)).cpu().numpy()
+    p, c = prev.cpu().numpy(), cur.cpu().numpy()
+    payload = {"meshes": [(2, 1), (1, 2)],
+               "flow": {"kw": {}, "prev": p, "cur": c},
+               "spatial": {"kw": {}, "prev": p, "cur": c},
+               "stream": {"kw": {}, "g0": p, "g1": c}}
+    ranks = dryrun.spawn(2, "infer", payload, cpu=False, backend="gloo",
+                         threads=None, timeout_s=300)
+    for i, (data, model) in enumerate(payload["meshes"]):
+        firsts = [ranks[r * model][i] for r in range(data)]
+        np.testing.assert_allclose(np.concatenate([f["flow"] for f in firsts]), want, atol=1e-5)
+        np.testing.assert_allclose(np.concatenate([f["spatial"] for f in firsts]), want, atol=1e-5)
+        np.testing.assert_allclose(np.concatenate([f["du"] for f in firsts]), du, atol=1e-5)
+        assert all(r[i]["launches"]["flow"]["farneback_update"] > 0 for r in ranks)
