@@ -143,7 +143,22 @@ seconds:
    L2, matmuls in fp32/TF32/bf16, an FMA chain) below the data sheet, every
    leg finite, and no stage's GB/s above 105% of the measured HBM
    read+write ceiling (a reading over it is a wrong byte count), or of the
-   L2's for a stage whose whole traffic in a call fits in the L2.
+   L2's for a stage whose whole traffic in a call fits in the L2;
+27. compressed frames and video at 640x480, on the committed fixtures of
+   tests/data/ (tests/_torch_codec_fixtures.py: 16 SyntheticCamera frames
+   at 0.05 m/s as a Motion-JPEG AVI, a PNG of all five row filters, a
+   4:4:4 JPEG with restart markers): the compiled JPEG decoder and PNG
+   unfilter (host C++ from ops/csrc/image_decode.cpp, built by the same
+   nvcc call) equal their plain forms byte for byte on every frame, with
+   the host ms a frame of each form; then four routes into the Farneback
+   FlowNode on the card (levels 2, winsize 13, 2 iterations), five passes
+   over the clip each: VideoFileSource, "jpeg" messages carrying the AVI's
+   frames, "compressed" messages carrying PNGs of them, and the decoded
+   frames sent raw; K1/K2 launches a pair (6 and 6), image -> velocity
+   p50/p99 a route, every velocity within 1% of the clip's known 0.05 m/s
+   (the CPU run's worst is 0.48%), the compressed routes' velocities equal
+   to the video route's, and the card's flow against the CPU's on two of
+   the decoded pairs (mean 1e-3 px, max 1e-2 px).
 
 Seeded weights cannot measure accuracy: the nets' accuracy is held on the
 CPU against the JAX package with the packaged npz
@@ -3462,6 +3477,127 @@ def roofline_phase(torch, trace_dir) -> None:
                       f"{l2_mb:.1f} MB L2 ({over})")
 
 
+def video_phase(torch, dev, passes=5, fps=30.0) -> dict:
+    """Phase 27: the decoders' two forms on the committed fixtures, then
+    the clip through four routes into the Farneback node on the card."""
+    import pathlib
+
+    from opticalflowcontainer_tpu_torch.runtime.bus import Bus
+    from opticalflowcontainer_tpu_torch.runtime.messages import Header, ImageMsg
+    from opticalflowcontainer_tpu_torch.runtime.nodes import (
+        FlowNode, NodeParams, make_farneback_backend)
+    from opticalflowcontainer_tpu_torch.runtime.sources import VideoFileSource
+    from opticalflowcontainer_tpu_torch.utils import avi, imcodec, png
+
+    data = pathlib.Path(__file__).resolve().parent / "tests" / "data"
+    path = str(data / "synthetic_640x480_mjpeg.avi")
+    v_true, p2m = 0.05, 0.000857  # tests/_torch_codec_fixtures.py
+
+    def host_ms(fn, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return (time.perf_counter() - t0) * 1e3 / reps, out
+
+    compiled = avi.AviReader(path)
+    plain = avi.AviReader(path, force_python=True)
+    n = len(plain)
+    require(n == len(compiled) == 16 and compiled.fps == 30.0,
+            "the fixture holds 16 frames at 30 fps")
+    frames, c_ms, p_ms = [], [], []
+    for i in range(n):
+        ms_c, a = host_ms(lambda: compiled.frame(i), 5)
+        ms_p, b = host_ms(lambda: plain.frame(i), 1)
+        require(a is not None and a.shape == (480, 640, 3) and np.array_equal(a, b),
+                f"AVI frame {i}: the compiled JPEG decoder equals the plain one")
+        frames.append(a)
+        c_ms.append(ms_c)
+        p_ms.append(ms_p)
+    print(f"640x480 Motion-JPEG frame ({len(compiled.chunk(0))} bytes, 4:2:0), "
+          f"host ms a frame over {n} frames: compiled {np.mean(c_ms):.3f} "
+          f"(min {min(c_ms):.3f}), plain {np.mean(p_ms):.1f}; equal byte for byte")
+    for name, reps in (("restart_444.jpg", 20), ("mixed_filters_640x480.png", 20)):
+        raw = (data / name).read_bytes()
+        ms_c, a = host_ms(lambda: imcodec.imdecode(raw), reps)
+        ms_p, b = host_ms(lambda: imcodec.imdecode(raw, force_python=True), 2)
+        require(a is not None and np.array_equal(a, b),
+                f"{name}: the compiled decoder equals the plain one")
+        require(imcodec.imdecode(raw[:len(raw) // 2]) is None,
+                f"{name} cut in half decodes to None")
+        print(f"{name} {a.shape[1]}x{a.shape[0]}: host ms compiled {ms_c:.3f}, "
+              f"plain {ms_p:.1f}; equal byte for byte")
+    chunks = [compiled.chunk(i) for i in range(n)]
+    pngs = [png.imencode(f) for f in frames]
+    ms_png, _ = host_ms(lambda: png.imdecode(pngs[0]), 10)
+
+    backend = make_farneback_backend(device=dev, levels=2, winsize=13, iterations=2)
+    backend(frames[0][..., 0].astype(np.float32), frames[1][..., 0].astype(np.float32),
+            1 / fps)  # warm-up
+
+    def drive(payload):
+        reset_counts()
+        vels, lat = [], []
+        for _ in range(passes):
+            bus = Bus(namespace="")
+            node = FlowNode(backend, NodeParams(pixel_to_meter=p2m, name="FB"),
+                            bus).attach()
+            got = []
+            bus.subscribe("/optical_flow/FB_velocity", lambda m: got.append(m.x))
+            source = iter(VideoFileSource(path).frames())
+            try:
+                for i in range(n):
+                    t0 = time.perf_counter()  # the image is ready to decode
+                    img, enc = payload(i, source)
+                    bus.publish("/camera/color/image_raw",
+                                ImageMsg(Header(i / fps), img, enc))
+                    if i:
+                        lat.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                node.stop()
+            require(node.frames_failed == 0 and len(got) == n - 1,
+                    "one velocity a pair, no frame failed")
+            vels.append(got)
+        return np.array(vels), np.array(lat), kernel_counts()
+
+    routes = {
+        "video_mjpeg": lambda i, src: (next(src), "bgr8"),
+        "compressed_jpeg": lambda i, src: (chunks[i], "jpeg"),
+        "compressed_png": lambda i, src: (pngs[i], "compressed"),
+        "video_raw": lambda i, src: (frames[i], "bgr8"),
+    }
+    by_path, vel = {}, {}
+    pairs = passes * (n - 1)
+    for label, payload in routes.items():
+        v, lat, counts = drive(payload)
+        by_path[label] = counts
+        vel[label] = v
+        print(f"  {label}: {pairs} pairs, image -> velocity p50 "
+              f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms "
+              f"(host clock); velocity {v.min():.6f}..{v.max():.6f} m/s (known "
+              f"{v_true}); K1/K2 launches a pair "
+              f"{counts['farneback_update'] / pairs:g}, {counts['blur_solve'] / pairs:g}")
+        require(counts["farneback_update"] == counts["blur_solve"] == 6 * pairs,
+                f"{label}: K1 and K2 launched 6 times a pair")
+    print(f"  PNG decode alone (compiled, 640x480, filter None): {ms_png:.3f} ms")
+    v = vel["video_mjpeg"]
+    require(np.abs(v - v_true).max() <= 0.01 * v_true,
+            "every velocity within 1% of the clip's 0.05 m/s")
+    for label in ("compressed_jpeg", "compressed_png", "video_raw"):
+        require(np.array_equal(vel[label], v), f"{label}'s velocities equal the "
+                "video route's")
+    cpu = make_farneback_backend(device="cpu", levels=2, winsize=13, iterations=2)
+    from opticalflowcontainer_tpu_torch.runtime.nodes import _bgr_to_gray_np
+
+    for i in (0, 7):
+        a, b = _bgr_to_gray_np(frames[i]), _bgr_to_gray_np(frames[i + 1])
+        d = np.abs(backend(a, b, 1 / fps) - cpu(a, b, 1 / fps))
+        print(f"  pair {i}-{i + 1}: card vs CPU flow mean {d.mean():.3e} px, max "
+              f"{d.max():.3e} px")
+        require(d.mean() <= 1e-3 and d.max() <= 1e-2,
+                "the card's flow holds against the CPU's")
+    return by_path
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3545,6 +3681,8 @@ def main() -> int:
         by_path.update(scaleout_phase(torch, dev))
     with phase("26 stage roofline 720p T=5 (measured ceilings)"):
         roofline_phase(torch, args.trace)
+    with phase("27 compressed frames and video 640x480"):
+        by_path.update(video_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

@@ -1,6 +1,6 @@
 """Resizes.  Bilinear with an explicit grid convention (reference
-``core/resize.py``), and cv2's INTER_AREA and INTER_NEAREST for the flow
-node's fixed net size (below).
+``core/resize.py``), cv2's INTER_AREA and INTER_NEAREST for the flow
+node's fixed net size, and PIL's BICUBIC for the comparison GIF (below).
 
 Bilinear, gather form (one ``index_select`` pair and a lerp per axis, fp32):
 
@@ -177,3 +177,62 @@ def resize_nearest(img, size: tuple[int, int]):
         i = [min(math.floor(d * ifx), src - 1) for d in range(dst)]
         out = out.index_select(dim, torch.tensor(i, device=x.device))
     return out.numpy() if was_numpy else out
+
+
+def _pil_bicubic(x: float) -> float:
+    """PIL's bicubic kernel (a = -0.5, support 2)."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _pil_taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for
+    BICUBIC: each output's source indices [dst, k] and 22-bit fixed-point
+    weights [dst, k] (0 past the output's last tap)."""
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((dst, ksize), np.int64)
+    w = np.zeros((dst, ksize), np.int64)
+    for xx in range(dst):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), src) - xmin
+        k = [_pil_bicubic((x + xmin - center + 0.5) / filterscale)
+             for x in range(xmax)]
+        ww = sum(k)
+        for x, kx in enumerate(k):
+            kx = kx / ww if ww != 0.0 else kx
+            w[xx, x] = int(-0.5 + kx * (1 << 22)) if kx < 0 else int(
+                0.5 + kx * (1 << 22))
+            idx[xx, x] = xmin + x
+    return idx, w
+
+
+def resize_bicubic_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``PIL.Image.resize((W', H'), Image.BICUBIC)`` of a uint8 [H, W] or
+    [H, W, C] image: the kernel widened by the scale when shrinking, 22-bit
+    fixed-point taps, a horizontal pass rounded to uint8 and then a
+    vertical one, as ``ImagingResample`` computes them (numpy, on the
+    host)."""
+    x = np.asarray(img)
+    if x.dtype != np.uint8:
+        raise ValueError(f"expected a uint8 image, got {x.dtype}")
+    (H, W), (h, w) = x.shape[:2], size
+    out = x.astype(np.int64)
+    for axis, src, dst in ((1, W, w), (0, H, h)):
+        if src == dst:
+            continue
+        idx, wt = _pil_taps(src, dst)
+        taps = np.take(out, idx, axis=axis)  # [.., dst, k, ..]
+        shape = [1] * taps.ndim
+        shape[axis], shape[axis + 1] = dst, idx.shape[1]
+        acc = (1 << 21) + (taps * wt.reshape(shape)).sum(axis=axis + 1)
+        out = np.clip(acc >> 22, 0, 255)
+    return out.astype(np.uint8)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 All ``csrc/*.cu`` sources, and the host-only ``csrc/*.cpp`` (the junction
-detector, which nvcc hands to the host compiler), go through ONE ``nvcc``
+detector and the JPEG/PNG decoders, which nvcc hands to the host
+compiler), go through ONE ``nvcc``
 call into a shared library with a plain C interface (each kernel has an
 ``extern "C"`` launcher that returns ``cudaGetLastError()``), loaded with
 ``ctypes``.  Host code is built with ``-ffp-contract=off``: a fused
@@ -57,6 +58,10 @@ _SIGNATURES = {
     # min_cluster_pts, rb_lo, rb_hi, rotated, out_xy, max_out
     "ofc_detect_junctions": (_I, [_P, _I, _I, _D, _D, _D, _I, _D, _D, _I,
                                   _P, _I]),
+    # host code: data, size, out (H x W x 3 BGR), H, W
+    "ofc_jpeg_decode": (_I, [_P, ctypes.c_int64, _P, _I, _I]),
+    # host code: raw (H rows of a filter byte + W * bpp), out, H, W, bpp
+    "ofc_png_unfilter": (_I, [_P, _P, _I, _I, _I]),
 }
 
 

@@ -22,8 +22,10 @@ Topic names follow the reference system:
 
 The junction detector runs on the host (``native.detect_junctions``), in
 process (:class:`JunctionDetectorNode`) or in its own process over the TCP
-bus bridge (``launch.bringup_junction_remote``).  Not ported yet (ROADMAP
-module item 3 d): the video-file source, which needs a video decoder.
+bus bridge (``launch.bringup_junction_remote``).  :class:`VideoFileSource`
+plays Motion-JPEG and uncompressed AVI files through the port's own
+demuxer and JPEG decoder, and :class:`FlowNode` decodes compressed (JPEG
+or PNG) frames with the port's own decoders.
 """
 from .bus import Bus, Subscription, ApproximateTimeSynchronizer
 from .messages import (
@@ -35,7 +37,7 @@ from .messages import (
     PointCloudMsg,
     FlowMsg,
 )
-from .sources import FrameDirectorySource, SyntheticCamera
+from .sources import FrameDirectorySource, SyntheticCamera, VideoFileSource
 from .nodes import (
     FlowNode,
     DepthNode,
@@ -76,6 +78,7 @@ __all__ = [
     "FlowMsg",
     "SyntheticCamera",
     "FrameDirectorySource",
+    "VideoFileSource",
     "FlowNode",
     "DepthNode",
     "JunctionMaskFlowNode",

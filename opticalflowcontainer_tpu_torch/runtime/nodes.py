@@ -37,6 +37,7 @@ from ..classical.lucas_kanade import calc_optical_flow_pyr_lk
 from ..core.corners import good_features_to_track
 from ..core.device import device_scope, resolve_device
 from ..core.resize import resize_area, resize_nearest
+from ..utils.imcodec import imdecode
 from .bus import ApproximateTimeSynchronizer, Bus
 from .messages import (
     FlowMsg,
@@ -98,15 +99,23 @@ class FlowNode:
     at runtime it is owned by ``self.vel`` (updated dynamically from depth/fx
     topics) -- change ``node.vel.pixel_to_meter``, not ``node.p``, after init.
 
+    Compressed frames (encoding ``"jpeg"`` or ``"compressed"``: the bytes
+    of a JPEG or PNG file, as a ROS CompressedImage carries them) are
+    decoded to BGR as ``cv2.imdecode(..., IMREAD_COLOR)`` decodes them, by
+    the port's compiled decoders unless ``force_python_decoder`` asks for
+    the plain ones (``utils.imcodec``).
+
     Counters: ``frames_processed`` (velocities published), ``frames_dropped``
     (stream mode: frames the full queue refused) and ``frames_failed``
-    (frames whose processing raised; the traceback is printed and the node
-    goes on, as the reference's nodes do).
+    (frames whose processing raised, whose traceback is printed, and
+    compressed frames that do not decode, which are dropped quietly as the
+    reference drops them; the node goes on, as the reference's nodes do).
     """
 
     def __init__(self, backend: Callable, params: NodeParams | None = None,
-                 bus: Bus | None = None):
+                 bus: Bus | None = None, force_python_decoder: bool = False):
         self.backend = backend
+        self.force_python_decoder = force_python_decoder
         self.p = params or NodeParams()
         self.bus = bus or Bus()
         self.vel = VelocityEstimator(
@@ -230,9 +239,10 @@ class FlowNode:
         t0 = time.perf_counter()
         frame = msg.data
         if msg.encoding in ("jpeg", "compressed"):
-            raise NotImplementedError(
-                f"{msg.encoding!r} frames need an image decoder, which the "
-                "port does not have yet (ROADMAP module item 7)")
+            frame = imdecode(frame, self.force_python_decoder)
+            if frame is None:
+                self.frames_failed += 1
+                return
         # Learned-model backends see the full color frame; classical
         # backends get BT.601 grayscale (what cv2.cvtColor BGR2GRAY computes).
         wants_color = bool(getattr(self.backend, "wants_color", False))

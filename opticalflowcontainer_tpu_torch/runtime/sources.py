@@ -3,12 +3,14 @@ reference's ``runtime/sources.py``).
 
 :class:`SyntheticCamera` renders a procedurally textured scene translating
 at a known metric velocity; the ground truth makes end-to-end velocity
-tests self-checking.  :class:`FrameDirectorySource` plays a directory of
-PNG frames in name order, read by the port's own PNG reader.  A source can
-``run()`` on a thread, publishing ``ImageMsg`` to a bus topic with
-host-timebase stamps, or be iterated synchronously.  The reference's
-video-file source decodes with cv2 and its RealSense source needs
-``pyrealsense2``; neither is ported (ROADMAP module item 3 d).
+tests self-checking.  :class:`VideoFileSource` plays an AVI file (Motion
+JPEG or uncompressed 24-bit) through the port's own demuxer and JPEG
+decoder (``utils.avi``), :class:`FrameDirectorySource` a directory of PNG
+frames in name order, read by the port's own PNG reader, and
+:class:`RealSenseSource` a live RealSense camera (it needs
+``pyrealsense2``).  A source can ``run()`` on a thread, publishing
+``ImageMsg`` to a bus topic with host-timebase stamps, or be iterated
+synchronously.
 """
 from __future__ import annotations
 
@@ -126,6 +128,28 @@ class SyntheticCamera(_BaseSource):
             yield self.frame_at(i)
 
 
+class VideoFileSource(_BaseSource):
+    """The frames of the AVI file at ``path`` as BGR uint8 until the file
+    ends, as the reference's ``cv2.VideoCapture`` playback yields them
+    (``utils.avi.AviReader``: Motion JPEG decoded bit for bit as
+    ``cv2.imdecode`` decodes each frame, or uncompressed 24-bit frames; any
+    other coding raises ``ValueError`` naming it).  The JPEG decoder is the
+    compiled one unless ``force_python`` asks for the plain one.  ``fps``
+    paces ``run()``; the file's own rate is ``file_fps``."""
+
+    def __init__(self, path: str, bus: Bus | None = None, fps: float = 30.0,
+                 fx: float = 600.0, force_python: bool = False):
+        from ..utils.avi import AviReader
+
+        super().__init__(bus, fps, fx)
+        self.path = path
+        self._reader = AviReader(path, force_python=force_python)
+        self.file_fps = self._reader.fps
+
+    def frames(self):
+        yield from self._reader.frames()
+
+
 class FrameDirectorySource(_BaseSource):
     """The PNG files of ``directory`` matching ``pattern``, in sorted order,
     as BGR uint8 frames (``utils.png.imread``, what ``cv2.imread``
@@ -141,3 +165,46 @@ class FrameDirectorySource(_BaseSource):
 
         for f in self.files:
             yield imread(f)
+
+
+class RealSenseSource(_BaseSource):
+    """Live RealSense camera source (the reference's primary input).
+    Requires ``pyrealsense2``, which the card's machine does not have, so
+    construction raises a clear error there; the synthetic / video /
+    directory sources are the drop-in stand-ins."""
+
+    def __init__(self, bus: Bus | None = None, width: int = 640, height: int = 480,
+                 fps: float = 30.0):
+        try:
+            import pyrealsense2 as rs  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "pyrealsense2 not available; use SyntheticCamera / "
+                "VideoFileSource / FrameDirectorySource instead"
+            ) from e
+        super().__init__(bus, fps)
+        self.width = width
+        self.height = height
+
+    def frames(self):  # pragma: no cover - requires hardware
+        import pyrealsense2 as rs
+
+        pipeline = rs.pipeline()
+        cfg = rs.config()
+        cfg.enable_stream(rs.stream.color, self.width, self.height,
+                          rs.format.bgr8, int(self.fps))
+        profile = pipeline.start(cfg)
+        intr = (
+            profile.get_stream(rs.stream.color)
+            .as_video_stream_profile()
+            .get_intrinsics()
+        )
+        self.fx = intr.fx
+        try:
+            while True:
+                frames = pipeline.wait_for_frames()
+                color = frames.get_color_frame()
+                if color:
+                    yield np.asanyarray(color.get_data())
+        finally:
+            pipeline.stop()

@@ -12,5 +12,10 @@
   family of the zoo on synthetic affine motion and export its flat npz;
 - ``python -m opticalflowcontainer_tpu_torch.tools.pwc_distill_extractor``
   -- distill the LFN3 trunk into PWC-Net's extractor (stage A of its
-  bootstrap).
+  bootstrap);
+- ``python -m opticalflowcontainer_tpu_torch.tools.record`` -- frames of a
+  Motion-JPEG or uncompressed AVI to an uncompressed AVI and/or numbered
+  PNGs;
+- ``python -m opticalflowcontainer_tpu_torch.tools.comparison`` -- two PNG
+  or JPEG images as a 2-frame looping GIF.
 """
