@@ -42,13 +42,14 @@ seconds:
    640x480) and NeuFlow-v2's two (at 768x432, radius 4); each launch run twice and
    the two held bit for bit; timed beside its bound at B=8 and at each B=1
    correlation;
-8. the PWC-Net path at 640x480 on seeded weights (the packaged npz is not
-   read, so the run needs no weights file): K3 and K4 launches per estimate call; the
+8. the PWC-Net path at 640x480 on seeded weights (a width-only timing
+   phase, phase 28 serves the packaged npz): K3 and K4 launches per estimate call; the
    kernel path vs the plain path on the card and vs the CPU; latency at
    B=1, pairs/s at B=8, and a 200-frame uint8 BGR stream through
    make_model_backend and VelocityEstimator (p50, p99 per frame); and the
-   served flow (cuDNN TF32 convolutions, PyTorch's default) against fp32
-   convolutions on the same pair;
+   served flow (fp32 convolutions, which the model holds: TF32 missed the
+   1e-2 px bar on the packaged weights, phase 28) against fp32 on the same
+   pair, and what TF32 convolutions would give;
 9. and 10. the LiteFlowNet3 and LiteFlowNet paths at 640x480 on seeded
    weights, each with phase 8's checks: K3 and K4 launches per estimate
    (13 and 6, 14 and 5), kernel path vs plain path and card vs CPU, the
@@ -89,14 +90,14 @@ seconds:
    (every frame processed or dropped, none failed; its velocity error is
    printed: seeded weights make it no accuracy figure);
 21. bf16 serving: each of the seven families through
-   FusedModelStream(bf16=True) at its phase's size over 100 frames, p50/p99
+   FusedModelStream(bf16=True) at its phase's size over 50 frames, p50/p99
    beside the fp32 stream's, the bf16 flow (fp32, finite) against the fp32
    flow on one pair, and K3/K4 launches equal to the fp32 stream's;
 22. the offline eval and tools: run_eval --method farneback on the easy
    fishnet suite (640x480, 32 pairs; its JSON row, the mean EPE beside
    README.md's JAX figure, K1/K2 launches a pair, pairs 0-1 on the card
-   against the CPU), pwcnet and neuflow on 4 fishnet pairs (K3/K4 launches
-   a pair; seeded weights where the npz is absent, said on its own line),
+   against the CPU), pwcnet and neuflow on 4 fishnet pairs with the
+   packaged npz (K3/K4 launches a pair; an absent npz fails the phase),
    --time-device for farneback and pwcnet, run_pair and fish_speed on two
    PNGs of a known subpixel shift written by the port's imwrite (the .flo's
    interior mean u within 0.05 px of it), and zoo_latency --quick;
@@ -158,15 +159,38 @@ seconds:
    p50/p99 a route, every velocity within 1% of the clip's known 0.05 m/s
    (the CPU run's worst is 0.48%), the compressed routes' velocities equal
    to the video route's, and the card's flow against the CPU's on two of
-   the decoded pairs (mean 1e-3 px, max 1e-2 px).
+   the decoded pairs (mean 1e-3 px, max 1e-2 px);
+28. the packaged weights: each of the seven npz of
+   opticalflowcontainer_tpu/models/weights/ (an absent one fails the
+   phase) loaded on the card by models/convert.py's loader; on the first
+   easy fishnet pair at 640x480 (NeuFlow-v2 at 768x432) K3/K4 launches
+   per estimate as phases 8-10 and 17-20, the card with fp32 convolutions
+   against the port on the CPU with the same npz (mean 1e-3 px, max 5e-2
+   px), the served flow against fp32 (mean 1e-2 px; TF32 for the
+   LiteFlowNets), and what TF32 would give for PWC-Net, RAFT-small, RAFT
+   and both NeuFlows (printed, no bar); run_eval over the 32 easy fishnet
+   pairs for Farneback and all seven (K1/K2 and K3/K4 launches a pair),
+   each mean EPE beside README.md's JAX figure, and
+   the card's EPE over the first 4 pairs within 1e-2 px of the CPU's (2e-2
+   where TF32 serves), the CPU side in spawned processes beside the card;
+   the demo --model neuflow on the packaged NeuFlowLite at 640x480, 30 fps,
+   90 frames (every frame processed or dropped, none failed, the smoothed
+   velocity within 10 mm/s); and at phase 23's sizes, 3 steps each,
+   train_flow --model raft_small --resume twice (the resumed parameters
+   equal the npz they resumed from bit for bit), --distill raft_large
+   (finite losses) and pwc_distill_extractor with its LFN3 teacher (finite
+   losses, the extractor npz written and grafted back bit for bit).
 
-Seeded weights cannot measure accuracy: the nets' accuracy is held on the
-CPU against the JAX package with the packaged npz
-(tests/test_torch_pwcnet.py, test_torch_liteflownet*.py,
+Phases 8-11, 14, 17-21, 23 (its training runs start from the seeded
+init, as train_flow does), 24 (LFN3) and 25 seed their weights on purpose:
+they time the widths and hold the kernels' path against the plain one and
+the card against the CPU, which seeded weights do as well as trained ones,
+and their bars on the flow are relative where seeded flows make pixels
+meaningless.  The learned phases that read the packaged npz (22 and 28)
+require it: an absent npz fails them.  Phase 28 holds the trained weights
+on the card against the CPU; the CPU tests hold them against the JAX
+package (tests/test_torch_pwcnet.py, test_torch_liteflownet*.py,
 test_torch_raft.py, test_torch_neuflow*.py, test_torch_bf16_serving.py).
-Here they
-measure the kernels' path against the plain one, the card against the CPU,
-and time.
 
 Kernel times are CUDA events around back-to-back wrapper calls (``ms``,
 what a caller waits for, the wrapper's host time included) and device time
@@ -1237,12 +1261,17 @@ def plain_kernels():
 
 
 def net_phase(torch, dev, trace_dir, label, model, cpu_model, estimate,
-              expect: dict, H=480, W=640) -> dict:
+              expect: dict, H=480, W=640, served_fp32=False) -> dict:
     """One model's estimate path at HxW on the card: K3 and K4 launches per
     call against ``expect``, the kernels' path against the plain path on the
     card and the card against the CPU (``cpu_model``, the same weights) at
-    192x128, the served convolutions against fp32 ones, B=1 latency, B=8
-    pairs/s and one call under the profiler.  Returns the launches."""
+    192x128, the served convolutions against fp32 ones (``served_fp32``: the
+    model holds fp32 convolutions, and what TF32 would give is printed),
+    B=1 latency, B=8 pairs/s and one call under the profiler.  Returns the
+    launches."""
+    import importlib
+    from unittest import mock
+
     from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
     from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
 
@@ -1296,23 +1325,36 @@ def net_phase(torch, dev, trace_dir, label, model, cpu_model, estimate,
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     # the flow estimate serves: PyTorch's default convolutions (cuDNN TF32,
-    # 10-bit mantissas) against fp32 ones on the same weights and pair.  Bar:
-    # mean 1e-2 px, a hundredth of a pixel over the field, far below the
-    # px-scale EPE of a flow network and the 0.05 px the Farneback clip
-    # recovers a shift to; the max is printed, not bounded: a pixel whose
-    # masked-warp weight sits at the 0.999 threshold flips its gate
+    # 10-bit mantissas), or fp32 ones where the model holds them, against
+    # fp32 ones on the same weights and pair.  Bar: mean 1e-2 px, a
+    # hundredth of a pixel over the field, far below the px-scale EPE of a
+    # flow network and the 0.05 px the Farneback clip recovers a shift to;
+    # the max is printed, not bounded: a pixel whose masked-warp weight sits
+    # at the 0.999 threshold flips its gate
     served = estimate(model, i1, i2)
     d = (served - kern).abs()
     tf32_bar = 1e-2
-    print(f"{W}x{H} served convolutions (cuDNN TF32 {tf32}) vs fp32: mean|d| "
+    kind = "fp32, held by the model" if served_fp32 else f"cuDNN TF32 {tf32}"
+    print(f"{W}x{H} served convolutions ({kind}) vs fp32: mean|d| "
           f"{float(d.mean()):.3e}, p99 {float(d.flatten().kthvalue(int(0.99 * d.numel())).values):.3e}, "
           f"max|d| {float(d.max()):.3e} px (bar: mean {tf32_bar} px)")
-    require(float(d.mean()) <= tf32_bar, "served TF32 flow within the bar of fp32")
+    require(float(d.mean()) <= tf32_bar, "served flow within the bar of fp32")
     lat = latency(i1, i2, 50)
+    if served_fp32:
+        mod = importlib.import_module(estimate.__module__)
+        with mock.patch.object(mod, "fp32_convolutions", contextlib.nullcontext):
+            require(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 is PyTorch's default")
+            d = (estimate(model, i1, i2) - kern).abs()
+            other_ms = latency(i1, i2, 50)
+        print(f"{W}x{H} TF32 convolutions (not served) vs fp32: mean|d| "
+              f"{float(d.mean()):.3e}, max|d| {float(d.max()):.3e} px")
+    else:
+        other_ms = fp32_ms
     print(f"{W}x{H} estimate at B=1, CUDA events over 50 calls: median "
           f"{np.median(lat):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms "
-          f"(PyTorch defaults, cuDNN TF32 {tf32}); with fp32 convolutions "
-          f"median {np.median(fp32_ms):.3f} ms")
+          f"(served: {kind}); with "
+          f"{'TF32' if served_fp32 else 'fp32'} convolutions median "
+          f"{np.median(other_ms):.3f} ms")
     b1, b2 = image_pairs(torch, H, W, 8, dev)
     torch.cuda.reset_peak_memory_stats()
     lat8 = latency(b1, b2, 10)
@@ -1336,7 +1378,8 @@ def pwc_phase(torch, dev, trace_dir, H=480, W=640, n=201, seed=7) -> dict:
     model = seeded_pwcnet(torch, seed, dev)
     launches = net_phase(torch, dev, trace_dir, "PWC-Net", model,
                          seeded_pwcnet(torch, seed, "cpu"), estimate,
-                         {"warp_bilinear": 4, "local_correlation": 5}, H, W)
+                         {"warp_bilinear": 4, "local_correlation": 5}, H, W,
+                         served_fp32=True)
 
     # the stream: uint8 BGR camera frames in host memory through the
     # learned-model backend into the velocity estimator
@@ -2333,7 +2376,7 @@ def neuflow_phase(torch, dev, trace_dir, v2: bool, n=201, fps=30.0) -> dict:
         return by_path
 
     # the demo's neuflow backend, its loader handing over the seeded model
-    # (the run reads no weights file)
+    # (a timing phase; phase 28 runs the demo on the packaged npz)
     n_demo = 90
     argv = ["--model", "neuflow", "--frames", str(n_demo), "--width", str(W),
             "--height", str(H), "--fps", str(fps)]
@@ -2351,8 +2394,7 @@ def neuflow_phase(torch, dev, trace_dir, v2: bool, n=201, fps=30.0) -> dict:
           f"{r['frames_processed'] / r['seconds']:.2f} fps achieved in "
           f"{r['seconds']:.3f} s, final smoothed velocity {r['final_vx']} m/s, "
           f"error {r['error_mps']} m/s (seeded weights: not an accuracy figure; "
-          f"the 10 mm/s bar is held with the packaged npz on the CPU, "
-          f"tests/test_torch_neuflow.py); launches {counts}")
+          f"phase 28 holds the 10 mm/s bar on the packaged npz); launches {counts}")
     require(r["ended"] and r["frames_failed"] == 0, "no frame failed, threads ended")
     require(r["published"] == r["frames_processed"] > 0
             and r["frames_processed"] + r["frames_dropped"] == n_demo - 1,
@@ -2395,9 +2437,9 @@ def bf16_families(torch, dev) -> list:
     ]
 
 
-def bf16_phase(torch, dev, n=101) -> dict:
+def bf16_phase(torch, dev, n=51) -> dict:
     """Phase 21: each family served in bfloat16 through
-    FusedModelStream(bf16=True) at its phase's size over 100 uint8 BGR
+    FusedModelStream(bf16=True) at its phase's size over 50 uint8 BGR
     frames beside an fp32 stream on the same frames, the two stepped in
     turns frame by frame (p50/p99 of each); K3 and K4 launches equal to the
     fp32 stream's (the kernels, not their plain versions, serve bf16); du
@@ -2477,9 +2519,14 @@ def eval_rows(run_eval, argv) -> list:
     return rows
 
 
-# K3 and K4 launches per eval pair of the learned methods phase 22 drives
+# K3 and K4 launches per eval pair (one estimate) of each learned method,
+# by run_eval's name: phases 8-10, 17-20 count the same per estimate
 EVAL_LAUNCHES = {"pwcnet": {"warp_bilinear": 4, "local_correlation": 5},
-                 "neuflow": {"warp_bilinear": 2, "local_correlation": 2}}
+                 "liteflownet": LFN_LAUNCHES, "liteflownet3": LFN3_LAUNCHES,
+                 "raft": {"warp_bilinear": 0, "local_correlation": 0},
+                 "raft_large": {"warp_bilinear": 0, "local_correlation": 0},
+                 "neuflow": NEUFLOW_LAUNCHES["neuflow_lite"],
+                 "neuflow_v2": NEUFLOW_LAUNCHES["neuflow_v2"]}
 README_FARNEBACK_FISHNET_EPE = 0.094  # README.md's table: the JAX package's
 
 
@@ -2487,8 +2534,8 @@ def eval_phase(torch, dev, H=480, W=640, n=32, shift=1.37) -> dict:
     """The offline eval and tools on the card: run_eval --method farneback
     on the easy fishnet suite at 640x480 (32 pairs; K1 and K2 launched
     (levels + 1) x 3 times a pair; pairs 0-1 against the CPU at phase 4's
-    bars), pwcnet and neuflow on 4 fishnet pairs (K3 / K4 launches a
-    pair), --time-device for farneback and pwcnet, run_pair and fish_speed
+    bars), pwcnet and neuflow on 4 fishnet pairs with the packaged npz,
+    which must be there (K3 / K4 launches a pair), --time-device for farneback and pwcnet, run_pair and fish_speed
     on two 640x480 PNGs of a known subpixel shift written by the port's
     imwrite (the .flo's interior mean u within 0.05 px of the shift, the
     PNGs decoded by the port's imread), and zoo_latency --quick."""
@@ -2497,7 +2544,6 @@ def eval_phase(torch, dev, H=480, W=640, n=32, shift=1.37) -> dict:
     from opticalflowcontainer_tpu_torch.classical import farneback as fb
     from opticalflowcontainer_tpu_torch.eval import run_eval
     from opticalflowcontainer_tpu_torch.eval.datasets import fishnet_eval_pairs
-    from opticalflowcontainer_tpu_torch.models import convert
     from opticalflowcontainer_tpu_torch.tools import fish_speed, run_pair, zoo_latency
     from opticalflowcontainer_tpu_torch.utils import imread, imwrite, read_flo
 
@@ -2526,11 +2572,8 @@ def eval_phase(torch, dev, H=480, W=640, n=32, shift=1.37) -> dict:
         require(d.mean() <= 1e-3 and d.max() <= 1e-2,
                 "farneback on the card within 1e-3 px mean, 1e-2 px max of the CPU")
 
-    for method, tag in (("pwcnet", "pwcnet_synth.npz"), ("neuflow", "neuflow_lite_synth.npz")):
-        weights = "packaged" if (convert.WEIGHTS_DIR / tag).exists() else "seeded"
-        print(f"  {method} weights: {weights}" + (
-            " (the npz is absent: its EPE measures the path, not accuracy)"
-            if weights == "seeded" else ""))
+    require_packaged(("pwcnet_synth.npz", "neuflow_lite_synth.npz"))
+    for method in ("pwcnet", "neuflow"):
         reset_counts()
         (row,) = eval_rows(run_eval, ["--method", method, "--fishnet", "--n", "4"])
         counts = kernel_counts()
@@ -3598,6 +3641,326 @@ def video_phase(torch, dev, passes=5, fps=30.0) -> dict:
     return by_path
 
 
+# ------------------------------------------------------------ phase 28
+# the packaged npz phase 28 serves, by run_eval method: (file, loader in
+# models/convert.py, label, README.md's easy fishnet EPE of the JAX
+# package's row for it)
+PACKAGED = {
+    "pwcnet": ("pwcnet_synth.npz", "load_pwcnet_synth", "PWC-Net", 2.99),
+    "liteflownet": ("liteflownet_synth.npz", "load_liteflownet_synth", "LiteFlowNet", 2.38),
+    "liteflownet3": ("liteflownet3_synth.npz", "load_liteflownet3_synth", "LFN3", 0.502),
+    "raft": ("raft_small_synth.npz", "load_raft_small_synth", "RAFT-small", 0.406),
+    "raft_large": ("raft_large_synth.npz", "load_raft_synth", "RAFT", 0.190),
+    "neuflow": ("neuflow_lite_synth.npz", "load_neuflow_lite_synth", "NeuFlowLite", 2.19),
+    "neuflow_v2": ("neuflow_v2_synth.npz", "load_neuflow_v2_synth", "NeuFlow-v2", 5.77),
+}
+# the families that serve cuDNN's TF32 convolutions (PyTorch's default);
+# RAFT, NeuFlow and PWC-Net hold theirs in fp32 (models/common.py
+# fp32_convolutions)
+TF32_SERVED = ("liteflownet", "liteflownet3")
+# the first easy fishnet pairs both the card's and the CPU's EPE are taken on
+EPE_PAIRS = 4
+
+
+def require_packaged(files) -> None:
+    """Each packaged npz in ``files`` is in the checkout: the learned
+    phases that read them have no seeded fallback."""
+    from opticalflowcontainer_tpu_torch.models import convert
+
+    missing = [f for f in files if not (convert.WEIGHTS_DIR / f).is_file()]
+    require(not missing, f"packaged weights {missing} are absent from "
+            f"{convert.WEIGHTS_DIR}: .chiprunignore must not list "
+            "opticalflowcontainer_tpu/models/weights/")
+
+
+def packaged_pair(method: str):
+    """(img1, img2) of the one easy fishnet pair phase 28 holds the card
+    against the CPU on: the eval's first pair at 640x480, NeuFlow-v2's at
+    768x432 (the reference NeuFlow node's size)."""
+    from opticalflowcontainer_tpu_torch.eval.datasets import fishnet_eval_pairs
+
+    H, W = (432, 768) if method == "neuflow_v2" else (480, 640)
+    return fishnet_eval_pairs(1, H, W)[0][:2]
+
+
+def mean_epe(flows, pairs) -> float:
+    """run_eval's mean EPE of ``flows`` over ``pairs``."""
+    from opticalflowcontainer_tpu_torch.eval.epe import epe_stats
+
+    return float(np.nanmean([epe_stats(f, gt, valid)["epe"]
+                             for f, (_, _, gt, valid) in zip(flows, pairs)]))
+
+
+def packaged_cpu_flows(method: str) -> dict:
+    """The port on the CPU with the packaged npz (run_eval's method, fp32):
+    the flow of phase 28's pair and the mean EPE over the first
+    EPE_PAIRS easy fishnet pairs.  Runs in a spawned process while the
+    card works, on two torch threads (three such processes and the card's
+    host thread share the machine's cores)."""
+    import torch
+
+    torch.set_num_threads(2)
+    from opticalflowcontainer_tpu_torch.eval import run_eval
+    from opticalflowcontainer_tpu_torch.eval.datasets import fishnet_eval_pairs
+
+    t0 = time.perf_counter()
+    run = run_eval._make_method(method, None, False, device="cpu")
+    pairs = fishnet_eval_pairs(EPE_PAIRS)
+    flows = [run(a, b) for a, b, _, _ in pairs]
+    pair = flows[0] if method != "neuflow_v2" else run(*packaged_pair(method))
+    return {"pair": pair, "epe": mean_epe(flows, pairs),
+            "seconds": time.perf_counter() - t0}
+
+
+def packaged_family(torch, dev, method: str, pairs) -> dict:
+    """One family of phase 28 on the card: the npz loaded by
+    ``convert.load_*_synth(dev)``; K3/K4 launches of one estimate; the
+    served flow against fp32 convolutions on the family's pair; for the
+    fp32-serving families what TF32 would give; the served flows of
+    ``pairs``.  Returns what :func:`packaged_against_cpu` holds against the
+    CPU: the launches, the fp32 flow and the served mean EPE."""
+    import importlib
+    from unittest import mock
+
+    from opticalflowcontainer_tpu_torch.eval import run_eval
+    from opticalflowcontainer_tpu_torch.models import convert
+
+    npz, loader, label, _ = PACKAGED[method]
+    _, _, est, _, kw_fn = run_eval._learned_spec(method)
+    kw = kw_fn(False)
+    mod = importlib.import_module(est.__module__)
+    model = getattr(convert, loader)(dev)
+    require(model is not None, f"{npz} loads on the card")
+
+    def serve(img1, img2):
+        with torch.inference_mode():
+            return est(model, run_eval._frames(img1, dev), run_eval._frames(img2, dev),
+                       **kw).float()
+
+    img1, img2 = packaged_pair(method)
+    serve(img1, img2)  # warm-up: cuDNN's heuristics or timed algorithms
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        fp32 = serve(img1, img2)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    H, W = img1.shape[:2]
+    want = dict(farneback_update=0, blur_solve=0, **EVAL_LAUNCHES[method])
+    rms = float(fp32.square().mean().sqrt())
+    print(f"  {label} ({npz}, {sum(p.numel() for p in model.parameters())} parameters) "
+          f"at {W}x{H}: flow RMS {rms:.3f} px; one estimate launched {launches} "
+          f"(expected {want})")
+    require(launches == want, f"{label}: K3/K4 launches per estimate as "
+            f"EVAL_LAUNCHES and phases 8-11, 19 and 20")
+    require(tuple(fp32.shape) == (H, W, 2) and bool(torch.isfinite(fp32).all()),
+            f"{label}: a finite {W}x{H} flow")
+    served = serve(img1, img2)
+    d = (served - fp32).abs()
+    kind = "cuDNN TF32" if method in TF32_SERVED else "fp32, held by the model"
+    print(f"  {label} served convolutions ({kind}) vs fp32: mean|d| "
+          f"{float(d.mean()):.3e}, max {float(d.max()):.3e} px (bar: mean 1e-2 px)")
+    require(float(d.mean()) <= 1e-2, f"{label}: the served flow within 1e-2 px of fp32")
+    if method not in TF32_SERVED:
+        with mock.patch.object(mod, "fp32_convolutions", contextlib.nullcontext):
+            require(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 is PyTorch's default")
+            d = (serve(img1, img2) - fp32).abs()
+        print(f"  {label} TF32 convolutions (not served) vs fp32 on trained weights: "
+              f"mean|d| {float(d.mean()):.3e} px ({float(d.mean()) / rms:.3e} of the "
+              f"RMS), max {float(d.max()):.3e} px ({float(d.max()) / rms:.3e} of the "
+              f"RMS); no bar")
+    flows = [serve(a, b).cpu().numpy() for a, b, _, _ in pairs]
+    return {"launches": launches, "fp32": fp32.cpu(), "epe": mean_epe(flows, pairs),
+            "n": len(pairs)}
+
+
+def packaged_against_cpu(torch, method: str, card: dict, cpu: dict) -> None:
+    """Phase 28's bars between the card and the port on the CPU, the same
+    npz: the fp32 flow of the family's pair, mean 1e-3 and max 5e-2 px;
+    the served mean EPE over the first pairs within 1e-2 px of the CPU's
+    (2e-2 px where TF32 serves)."""
+    label = PACKAGED[method][2]
+    d = (card["fp32"] - torch.from_numpy(cpu["pair"])).abs()
+    bar = 2e-2 if method in TF32_SERVED else 1e-2
+    print(f"  {label}: card (fp32 convolutions) vs CPU mean|d| {float(d.mean()):.3e}, "
+          f"max {float(d.max()):.3e} px (bars 1e-3 / 5e-2); mean EPE over the first "
+          f"{card['n']} easy fishnet pairs: card (served) {card['epe']:.5f}, CPU "
+          f"{cpu['epe']:.5f} px (bar {bar}; the CPU side took {cpu['seconds']:.1f} s "
+          f"in its own process)")
+    require(float(d.mean()) <= 1e-3 and float(d.max()) <= 5e-2,
+            f"{label}: the card agrees with the CPU on the packaged weights")
+    require(abs(card["epe"] - cpu["epe"]) <= bar,
+            f"{label}: the card's EPE within {bar} px of the CPU's")
+
+
+def packaged_eval(run_eval, n_eval: int, card_name: str, by_path: dict) -> list:
+    """run_eval over the first ``n_eval`` easy fishnet pairs on the card
+    for Farneback and the seven families, each mean EPE beside README.md's
+    JAX figure; K1/K2 launched (levels + 1) x 3 times a Farneback pair and
+    K3/K4 as EVAL_LAUNCHES a learned pair.  Returns the rows."""
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+
+    methods = ",".join(("farneback", *PACKAGED))
+    readme = {"farneback": ("Farneback", README_FARNEBACK_FISHNET_EPE)}
+    readme.update((m, (v[2], v[3])) for m, v in PACKAGED.items())
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = eval_rows(run_eval, ["--method", methods, "--fishnet", "--n", str(n_eval)])
+    counts = kernel_counts()
+    for row in rows:
+        label, figure = readme[row["method"]]
+        print(f"  {label}: mean EPE {row['epe']:.4f} px over {row['n']} easy fishnet "
+              f"pairs at 640x480 on {card_name}; README.md's {figure} is the JAX "
+              f"package's (no bar)")
+        require(row["n"] == n_eval and np.isfinite(row["epe"]), f"{label}: a finite row")
+    require([r["method"] for r in rows] == methods.split(","), "a row a method")
+    per_pair = (fb._num_levels(480, 640, 3, 0.5) + 1) * 3  # cv2's defaults
+    want = {"farneback_update": n_eval * per_pair, "blur_solve": n_eval * per_pair}
+    want.update((k, n_eval * sum(EVAL_LAUNCHES[m][k] for m in PACKAGED))
+                for k in ("warp_bilinear", "local_correlation"))
+    print(f"  run_eval --method {methods} --fishnet --n {n_eval}: "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts} (expected {want})")
+    require(counts == want, "run_eval launched K1/K2 (levels + 1) x 3 times a "
+            "Farneback pair and K3/K4 as EVAL_LAUNCHES a learned pair")
+    by_path["packaged_eval"] = counts
+    return rows
+
+
+def packaged_phase(torch, dev, n_eval=32, n_demo=90, steps=3) -> dict:
+    """Phase 28: the seven packaged npz on the card (see the module's
+    docstring).  Returns the launches by path."""
+    import concurrent.futures
+    import io
+    import multiprocessing
+    import shutil
+    from unittest import mock
+
+    from opticalflowcontainer_tpu_torch.eval import run_eval
+    from opticalflowcontainer_tpu_torch.eval.datasets import fishnet_eval_pairs
+    from opticalflowcontainer_tpu_torch.models import convert
+    from opticalflowcontainer_tpu_torch.runtime import demo
+    from opticalflowcontainer_tpu_torch.tools import pwc_distill_extractor, train_flow
+
+    require_packaged(v[0] for v in PACKAGED.values())
+    card_name = card_line()
+    by_path = {}
+    # the CPU side, the slowest families first, in spawned processes beside
+    # the card's work
+    order = ("raft_large", "raft", "liteflownet", "liteflownet3", "pwcnet",
+             "neuflow_v2", "neuflow")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {m: pool.submit(packaged_cpu_flows, m) for m in order}
+        pairs = fishnet_eval_pairs(EPE_PAIRS)
+        card = {m: packaged_family(torch, dev, m, pairs) for m in PACKAGED}
+        by_path.update((f"packaged_{m}", c["launches"]) for m, c in card.items())
+        # run_eval over the easy suite on the card: the JAX package's README
+        # row beside each (accuracy, no bar)
+        packaged_eval(run_eval, n_eval, card_name, by_path)
+        t0 = time.perf_counter()
+        cpu = {m: job.result(timeout=600) for m, job in jobs.items()}
+        print(f"  waited {time.perf_counter() - t0:.2f} s for the CPU side")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for method in PACKAGED:
+        packaged_against_cpu(torch, method, card[method], cpu[method])
+
+    # the demo on the packaged NeuFlowLite: the velocity bar of the CPU test
+    argv = ["--model", "neuflow", "--frames", str(n_demo), "--width", "640",
+            "--height", "480", "--fps", "30"]
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):  # one line a frame: keep the tail
+        r = demo.run(argv)
+    counts = kernel_counts()
+    for line in out.getvalue().strip().splitlines()[-2:]:
+        print(f"  demo {' '.join(argv)}: {line}")
+    print(f"  demo_neuflow (packaged): processed {r['frames_processed']}, dropped "
+          f"{r['frames_dropped']}, failed {r['frames_failed']} of {n_demo} frames, "
+          f"final smoothed velocity {r['final_vx']} m/s, error {r['error_mps']} m/s "
+          f"(bar 0.010, tests/test_torch_neuflow.py's); launches {counts}")
+    require(r["ended"] and r["frames_failed"] == 0, "no frame failed, threads ended")
+    require(r["frames_processed"] + r["frames_dropped"] == n_demo - 1
+            and r["published"] == r["frames_processed"] > 0,
+            "every frame processed or dropped, one velocity a processed frame")
+    require(r["error_mps"] is not None and r["error_mps"] < 0.010,
+            "the packaged NeuFlowLite's smoothed velocity within 10 mm/s")
+    want = {k: v * (r["frames_processed"] + 1) for k, v in
+            dict(farneback_update=0, blur_solve=0, **EVAL_LAUNCHES["neuflow"]).items()}
+    require(counts == want, f"the demo launched {want}")
+    by_path["packaged_demo_neuflow"] = counts
+
+    # training on the card from the packaged npz at phase 23's sizes
+    def train(main, argv) -> tuple[str, list]:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            require(main(argv) == 0, f"{' '.join(argv)} returns 0")
+        text = log.getvalue()
+        losses = [float(ln.split()[3]) for ln in text.splitlines()
+                  if ln.startswith("step")]
+        require(len(losses) == steps and np.isfinite(losses).all(),
+                f"{' '.join(argv)}: a finite loss at every step")
+        return text, losses
+
+    started = []
+    real_state = train_flow.TrainState
+
+    def capture(model, opt):
+        started.append({k: p.detach().cpu().clone() for k, p in model.named_parameters()})
+        return real_state(model, opt)
+
+    base = ["--steps", str(steps), "--log-every", "1", "--ckpt-every", "0"]
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(train_flow, "TrainState", capture):
+        out = os.path.join(tmp, "raft_small.npz")
+        shutil.copyfile(convert.WEIGHTS_DIR / "raft_small_synth.npz", out)
+        for run in ("packaged", "saved"):
+            before = convert.flax_to_torch_state_dict(
+                convert.load_flat_npz(out), train_flow.build_model("raft_small"))
+            t0 = time.perf_counter()
+            text, losses = train(train_flow.main, ["--model", "raft_small", "--resume",
+                                                   "--out", out, *base])
+            got = started[-1]
+            same = set(got) == set(before) and all(torch.equal(got[k], before[k])
+                                                   for k in got)
+            print(f"  train_flow --model raft_small --resume from the {run} npz: "
+                  f"losses {losses}, {time.perf_counter() - t0:.2f} s; the resumed "
+                  f"parameters equal the npz bit for bit: {same}")
+            require("resumed params from" in text and same,
+                    "the resumed parameters equal the saved ones bit for bit")
+        moved = convert.flax_to_torch_state_dict(convert.load_flat_npz(out),
+                                                 train_flow.build_model("raft_small"))
+        require(any(not torch.equal(moved[k], started[0][k]) for k in moved),
+                "the resumed runs trained the parameters")
+        t0 = time.perf_counter()
+        text, losses = train(train_flow.main, ["--model", "raft_small", "--distill",
+                                               "raft_large", "--out",
+                                               os.path.join(tmp, "d.npz"), *base])
+        require("distilling from raft_large teacher" in text, "the packaged teacher")
+        print(f"  train_flow --model raft_small --distill raft_large: losses {losses}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        ext = os.path.join(tmp, "ext.npz")
+        t0 = time.perf_counter()
+        text, losses = train(pwc_distill_extractor.main, [
+            "--steps", str(steps), "--log-every", "1", "--out", ext])
+        pwc = train_flow.build_model("pwcnet")
+        train_flow._graft_extractor(pwc, ext)
+        back = convert.torch_to_flax_flat(pwc.extractor)
+        written = convert.load_flat_npz(ext)
+        require(set(back) == set(written) and all(np.array_equal(back[k], written[k])
+                                                  for k in back),
+                "the extractor npz loads back into PWC-Net's extractor")
+        print(f"  pwc_distill_extractor (the packaged LFN3 teacher): feat-losses "
+              f"{losses}, {time.perf_counter() - t0:.2f} s; {len(written)} extractor "
+              f"arrays written and grafted back into PWC-Net ({card_name})")
+    return by_path
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3683,6 +4046,8 @@ def main() -> int:
         roofline_phase(torch, args.trace)
     with phase("27 compressed frames and video 640x480"):
         by_path.update(video_phase(torch, dev))
+    with phase("28 packaged weights (seven npz served, evaluated, fine-tuned)"):
+        by_path.update(packaged_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
     for k in (k1, k2, k3, k4):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()

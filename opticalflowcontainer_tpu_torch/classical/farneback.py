@@ -420,3 +420,15 @@ def farneback_traffic_breakdown(H: int, W: int, levels: int = 3,
             "solve_per_iter": slv, "resize": rsz})
     out["total"] = out["poly"] + out["update"] + out["solve"] + out["resize"]
     return out
+
+
+def farneback_bytes_per_field(H: int, W: int, levels: int = 3,
+                              pyr_scale: float = 0.5, iterations: int = 3,
+                              clip_frames: int | None = 5) -> float:
+    """Total device-memory bytes per flow field: the sum of
+    :func:`farneback_traffic_breakdown`'s stages.  These are the port's own
+    bytes (exact sampling, no block warp, fp32 planes), so they differ
+    from the reference's TPU count by design."""
+    return farneback_traffic_breakdown(
+        H, W, levels=levels, pyr_scale=pyr_scale, iterations=iterations,
+        clip_frames=clip_frames)["total"]

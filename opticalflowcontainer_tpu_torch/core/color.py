@@ -1,4 +1,5 @@
-"""Colour conversion for the frame-ingest stage (reference ``core/color.py``)."""
+"""Colour conversion and normalization for the frame-ingest stage
+(reference ``core/color.py``)."""
 from __future__ import annotations
 
 import math
@@ -7,6 +8,11 @@ import torch
 
 # ITU-R BT.601 luma weights, what cv2.cvtColor(COLOR_BGR2GRAY) uses
 _BT601 = (0.299, 0.587, 0.114)
+
+
+def bgr_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """Channel flip on the trailing dim ([..., H, W, 3])."""
+    return img.flip(-1)
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
@@ -20,6 +26,17 @@ def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 3] BGR -> [..., H, W] luma, in the input's float dtype."""
     b, g, r = img[..., 0], img[..., 1], img[..., 2]
     return _BT601[0] * r + _BT601[1] * g + _BT601[2] * b
+
+
+def normalize_image(img: torch.Tensor, scale: float = 1.0 / 255.0,
+                    mean: tuple[float, ...] | None = None) -> torch.Tensor:
+    """``img * scale - mean`` (per channel on the trailing dim) in fp32.
+    ``mean=None`` skips the subtraction; the models that subtract each
+    image's own mean (LFN3) do that inside their forward."""
+    out = img.float() * scale
+    if mean is not None:
+        out = out - torch.tensor(mean, dtype=torch.float32, device=out.device)
+    return out
 
 
 def flow_to_hsv_rgb(flow: torch.Tensor, max_mag: float | None = None) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """cv2-parity separable filtering in plain PyTorch.
 
-Counterpart of the reference's ``core/filters.py`` for what the Farneback
-and Lucas-Kanade paths need: OpenCV's ``getGaussianKernel``, a separable
-correlation with OpenCV's border modes, and the Scharr derivatives of the
-LK tracker; and the adaptive node's median, bilateral and CLAHE filters.  Border conventions:
+Counterpart of the reference's ``core/filters.py``: OpenCV's
+``getGaussianKernel``, a separable correlation with OpenCV's border modes,
+``GaussianBlur``, ``boxFilter`` and the 3x3 ``Sobel``, the Scharr
+derivatives of the LK tracker, and the adaptive node's median, bilateral
+and CLAHE filters.  Border conventions:
 
 - ``BORDER_REFLECT_101`` == ``numpy.pad(mode="reflect")``  (GaussianBlur,
-  pyrDown)
+  pyrDown, Sobel)
 - ``BORDER_REPLICATE``   == ``numpy.pad(mode="edge")``     (inside the
   Farneback polynomial expansion and the winsize blur, the Scharr
   derivatives)
+- ``BORDER_REFLECT``     == ``numpy.pad(mode="symmetric")``
+- ``BORDER_CONSTANT``    == zeros
 
 Filters take ``[..., H, W]`` float tensors.  The correlation is a sum of
 scaled shifted slices, the same order of operations as the reference's CPU
@@ -22,7 +25,8 @@ import torch
 
 from .device import cached_tensors
 
-_BORDER_TO_NP = {"reflect101": "reflect", "replicate": "edge"}
+_BORDER_TO_NP = {"reflect101": "reflect", "replicate": "edge",
+                 "reflect": "symmetric"}
 
 
 def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
@@ -58,6 +62,8 @@ def _pad_index(n: int, p: int, border: str, device: torch.device) -> torch.Tenso
 
 def _pad2d(img: torch.Tensor, ph: int, pw: int, border: str) -> torch.Tensor:
     """Pad the trailing two dims by (ph, pw) with an OpenCV border mode."""
+    if border == "constant":
+        return torch.nn.functional.pad(img, (pw, pw, ph, ph)) if ph or pw else img
     H, W = img.shape[-2], img.shape[-1]
     if ph:
         img = img.index_select(-2, _pad_index(H, ph, border, img.device))
@@ -83,6 +89,40 @@ def _sepconv(img: torch.Tensor, kx: np.ndarray, ky: np.ndarray,
     x = _pad2d(img.float(), len(ky) // 2, len(kx) // 2, border)
     x = _corr1d(x, ky, x.dim() - 2)
     return _corr1d(x, kx, x.dim() - 1)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float,
+                  border: str = "reflect101") -> torch.Tensor:
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma)`` parity over the
+    trailing [H, W], in fp32."""
+    k = gaussian_kernel_1d(ksize, sigma)
+    return _sepconv(img, k, k, border)
+
+
+def box_filter(img: torch.Tensor, ksize: int, border: str = "reflect101",
+               normalize: bool = True) -> torch.Tensor:
+    """``cv2.boxFilter`` / ``cv2.blur`` parity (square ``ksize`` window)
+    over the trailing [H, W], in fp32.  As in the reference, both sides
+    are padded by ``ksize // 2``: an even window gives one more row and
+    column than the input, and the first [H, W] are OpenCV's (its anchor
+    at ``ksize // 2``)."""
+    k = np.ones(ksize, np.float64)
+    if normalize:
+        k /= ksize
+    return _sepconv(img, k, k, border)
+
+
+def sobel(img: torch.Tensor, dx: int, dy: int, ksize: int = 3) -> torch.Tensor:
+    """``cv2.Sobel`` parity for ksize 3 (the derivative [-1, 0, 1] along
+    each axis with a derivative order, the smoothing [1, 2, 1] along the
+    other), reflect101 border, over the trailing [H, W], in fp32.  Other
+    kernel sizes raise, as in the reference."""
+    if ksize != 3:
+        raise ValueError(f"sobel: only ksize 3 is implemented, got {ksize}")
+    smooth = np.array([1.0, 2.0, 1.0])
+    deriv = np.array([-1.0, 0.0, 1.0])
+    return _sepconv(img, deriv if dx else smooth, deriv if dy else smooth,
+                    "reflect101")
 
 
 def scharr_deriv(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -81,7 +81,9 @@ def fp32_convolutions():
     """cuDNN convolutions in fp32 (no TF32) for the block, each algorithm
     chosen by timing (``cudnn.benchmark``): on an H100 cuDNN's fp32
     heuristics made RAFT's B=8 estimate 2-6x slower (PERF.md,
-    "Findings").  The switches are PyTorch's process-wide
+    "Findings").  RAFT, NeuFlow and PWC-Net run their forward in it: TF32
+    moved their flows past the 1e-2 px bar (RAFT's seeded ones, PWC-Net's
+    packaged ones).  The switches are PyTorch's process-wide
     ``torch.backends.cudnn.benchmark`` and ``allow_tf32``: blocks entered
     from several threads at once are counted, the first saves the settings
     and the last restores them, and convolutions that other threads run
@@ -110,6 +112,21 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     convolutions on the tensor cores).  In place, as ``Module.to``; returns
     ``module``."""
     return module.to(dtype)
+
+
+def fuse_conv_bn(weight, bias, gamma, beta, mean, var, eps: float = 1e-5):
+    """Fold an eval-mode BatchNorm (``gamma``, ``beta``, running ``mean``
+    and ``var``) into the convolution before it, in numpy (reference
+    ``models/common.py`` ``fuse_conv_bn``, the NeuFlow node's Conv+BN
+    fusion).  ``weight`` is torch's OIHW layout (the reference takes flax's
+    HWIO), ``bias`` the conv's [O] bias or None.  Returns (weight', bias')
+    with ``conv(x, weight') + bias' == bn(conv(x, weight) + bias)``.  A
+    utility for imported checkpoints: no model of the zoo has a
+    BatchNorm."""
+    scale = np.asarray(gamma) / np.sqrt(np.asarray(var) + eps)
+    w = np.asarray(weight) * scale[:, None, None, None]
+    b = (np.asarray(bias) if bias is not None else 0.0) - np.asarray(mean)
+    return w, b * scale + np.asarray(beta)
 
 
 def in_fp32(kernel, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:

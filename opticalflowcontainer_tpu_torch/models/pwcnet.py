@@ -10,6 +10,12 @@ the reference's.  The net's output is at 1/4 of its input;
 :func:`estimate` implements the resize-to-64 / resize-back / rescale
 contract.  Module and parameter names follow the reference's flax names,
 which ``models/convert.py`` relies on.
+
+An fp32 model runs its convolutions in fp32
+(:func:`~.common.fp32_convolutions`), as RAFT and NeuFlow do: on the
+packaged weights cuDNN's TF32 convolutions moved the flow of the first
+easy fishnet pair at 640x480 by 1.4e-2 px on average against fp32, over
+the 1e-2 px the zoo's served flows are held to (PERF.md).
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from torch import nn
 
 from ..core.warp import warp_with_mask
 from ..ops.correlation import local_correlation
-from .common import Conv, Deconv, estimate_resized, in_fp32, leaky
+from .common import Conv, Deconv, estimate_resized, fp32_convolutions, in_fp32, leaky
 
 _EXTRACTOR_CH = (16, 32, 64, 96, 128, 196)
 _DENSE_CH = (128, 128, 96, 64, 32)
@@ -126,6 +132,10 @@ class PWCNet(nn.Module):
         {6: ..., 2: ...} in the net's /20 units at the level's own
         resolution, level 2 after the refiner (the reference's training
         supervision)."""
+        with fp32_convolutions():
+            return self._forward(img1, img2, return_pyramid)
+
+    def _forward(self, img1, img2, return_pyramid):
         B = img1.shape[0]
         # both frames through the extractor in one batch
         feats = self.extractor(torch.cat([img1, img2], 0))

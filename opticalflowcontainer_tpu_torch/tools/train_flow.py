@@ -63,7 +63,7 @@ FAMILIES = {"raft_small": RAFTSmall, "raft_large": RAFT,
 LEVEL_WEIGHTS = {6: 0.32, 5: 0.08, 4: 0.02, 3: 0.01, 2: 0.005}
 PYRAMID_MODELS = ("pwcnet", "liteflownet3", "liteflownet")
 # the families that serve fp32 convolutions train with them, backward too
-FP32_MODELS = ("raft_small", "raft_large", "neuflow_lite", "neuflow_v2")
+FP32_MODELS = ("raft_small", "raft_large", "neuflow_lite", "neuflow_v2", "pwcnet")
 # what --height and --width must be multiples of: each net's coarsest level
 # must halve evenly into the next (PWC-Net's 2x deconvolutions meet its
 # extractor's levels only at multiples of 64; the reference fails there at

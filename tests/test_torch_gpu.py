@@ -945,3 +945,36 @@ def test_compiled_decoders_equal_the_plain_ones(cuda):
         np.testing.assert_array_equal(imcodec.imdecode(raw),
                                       imcodec.imdecode(raw, force_python=True))
         assert imcodec.imdecode(raw[:len(raw) // 2]) is None
+
+
+def test_packaged_pwcnet_on_the_card_matches_the_cpu(cuda):
+    """The packaged ``pwcnet_synth.npz`` loaded on the card serves the
+    first easy fishnet pair at 640x480 as the port does on the CPU, at
+    chip_smoke phase 28's bars: with fp32 convolutions mean 1e-3 px, max
+    5e-2 px (K3/K4 against their plain versions, fp32 sums in another
+    order; the max allows a masked-warp gate flip); the served flow (the
+    model holds fp32 convolutions) within 1e-2 px mean of fp32 with
+    PyTorch's defaults switched off; K3 4 and K4 5 launches a call."""
+    from opticalflowcontainer_tpu_torch.eval.datasets import fishnet_eval_pairs
+    from opticalflowcontainer_tpu_torch.models import convert
+
+    card, cpu = convert.load_pwcnet_synth(cuda), convert.load_pwcnet_synth("cpu")
+    assert card is not None and cpu is not None, "pwcnet_synth.npz is absent"
+    (img1, img2, _, _), = fishnet_eval_pairs(1)
+    with torch.inference_mode():
+        want = pwcnet.estimate(cpu, img1, img2)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            before = (k3.warp_bilinear.launches, k4.local_correlation.launches)
+            fp32 = pwcnet.estimate(card, img1, img2)
+            torch.cuda.synchronize()
+            after = (k3.warp_bilinear.launches, k4.local_correlation.launches)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        served = pwcnet.estimate(card, img1, img2)
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 5)
+    assert fp32.shape == (480, 640, 2) and bool(torch.isfinite(fp32).all())
+    d = (fp32.cpu() - want).abs()
+    assert float(d.mean()) <= 1e-3 and float(d.max()) <= 5e-2
+    assert float((served - fp32).abs().mean()) <= 1e-2
