@@ -1,0 +1,5 @@
+"""``conv_ms_per_field.pwcnet``, read in the cells that report
+``frame_p95_ms`` (BENCHMARK.json)."""
+from portbench.harness import reader
+
+read = reader("conv_ms_per_field.pwcnet")

@@ -1,0 +1,5 @@
+"""``mfu.farneback``, read in the cells that report
+``fields_per_s.host_paced`` (BENCHMARK.json)."""
+from portbench.harness import reader
+
+read = reader("mfu.farneback")

@@ -1,0 +1,5 @@
+"""``mfu.pwcnet``, read in the cells that report
+``frame_p95_ms`` (BENCHMARK.json)."""
+from portbench.harness import reader
+
+read = reader("mfu.pwcnet")
