@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.device import resolve_device
 from ..core.filters import _corr1d, _pad2d, _sepconv, gaussian_kernel_1d
 from ..core.resize import resize_bilinear
@@ -120,46 +121,50 @@ def _level_planes(img: torch.Tensor, H: int, W: int, k: int, pyr_scale: float,
     scale = pyr_scale**k
     sigma = (1.0 / scale - 1.0) * 0.5
     smooth_sz = max(int(round(sigma * 5)) | 1, 3)
-    kern = gaussian_kernel_1d(smooth_sz, sigma)
-    level = resize_bilinear(_sepconv(img, kern, kern, "reflect101"),
-                            _level_size(H, W, scale))
-    return _poly_planes(level, poly_n, poly_sigma).contiguous()
+    with spans.annotate(spans.FARNEBACK_PREP):
+        kern = gaussian_kernel_1d(smooth_sz, sigma)
+        level = resize_bilinear(_sepconv(img, kern, kern, "reflect101"),
+                                _level_size(H, W, scale))
+        return _poly_planes(level, poly_n, poly_sigma).contiguous()
 
 
 def _pyramid_flow(planes_at, N: int, H: int, W: int, n_levels: int,
                   pyr_scale: float, winsize: int, iterations: int,
                   use_gauss: bool, init_uv, device: torch.device):
     """Coarse-to-fine iterations.  ``planes_at(k)`` gives level k's (R0, R1)
-    [N, 5, lh, lw]; ``init_uv`` is None or full-resolution (u, v) [N, H, W].
-    Returns (u, v) [N, H, W]."""
+    [N, 5, lh, lw] (its prep, before the level's solve span opens);
+    ``init_uv`` is None or full-resolution (u, v) [N, H, W].  Returns (u, v)
+    [N, H, W]."""
     u = v = None
     for k in range(n_levels, -1, -1):
+        R0, R1 = planes_at(k)
         scale = pyr_scale**k
         lh, lw = _level_size(H, W, scale)
-        if u is None:
-            if init_uv is not None:
-                u = resize_bilinear(init_uv[0], (lh, lw)) * scale
-                v = resize_bilinear(init_uv[1], (lh, lw)) * scale
+        with spans.annotate(spans.FARNEBACK_SOLVE):
+            if u is None:
+                if init_uv is not None:
+                    u = resize_bilinear(init_uv[0], (lh, lw)) * scale
+                    v = resize_bilinear(init_uv[1], (lh, lw)) * scale
+                else:
+                    u = torch.zeros((N, lh, lw), dtype=torch.float32, device=device)
+                    v = torch.zeros_like(u)
             else:
-                u = torch.zeros((N, lh, lw), dtype=torch.float32, device=device)
-                v = torch.zeros_like(u)
-        else:
-            u = resize_bilinear(u, (lh, lw)) / pyr_scale
-            v = resize_bilinear(v, (lh, lw)) / pyr_scale
-        u, v = u.contiguous(), v.contiguous()
-        R0, R1 = planes_at(k)
-        for _ in range(iterations):
-            M = farneback_update(R0, R1, u, v)
-            u, v = blur_solve(M, winsize, use_gauss)
+                u = resize_bilinear(u, (lh, lw)) / pyr_scale
+                v = resize_bilinear(v, (lh, lw)) / pyr_scale
+            u, v = u.contiguous(), v.contiguous()
+            for _ in range(iterations):
+                M = farneback_update(R0, R1, u, v)
+                u, v = blur_solve(M, winsize, use_gauss)
     return u, v
 
 
 def _frames(x, device: torch.device) -> torch.Tensor:
     """Frames as fp32 on ``device`` (numpy arrays and tensors alike; integer
     frames are sent as they are and converted on the device)."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device).float()
+    with spans.annotate(spans.FARNEBACK_UPLOAD):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device).float()
 
 
 def _init_uv(flow, batch: tuple, H: int, W: int, device: torch.device):

@@ -14,6 +14,8 @@ import shutil
 
 import torch
 
+from . import spans
+
 # streaming multiprocessors of an H100 SXM: the default the kernels' launch
 # configurations assume where no card is asked (the CPU tests)
 H100_SMS = 132
@@ -88,12 +90,13 @@ def cached_tensors(maxsize: int):
     tensors, which builds them outside inference mode.  The cache hands the
     same tensors to every later caller: one made under
     ``torch.inference_mode()`` (a serving call) could not be saved for
-    backward by a later training call."""
+    backward by a later training call.  A miss runs inside the
+    ``ofc.build`` span (:data:`.spans.BUILD`)."""
     def wrap(fn):
         @functools.lru_cache(maxsize=maxsize)
         @functools.wraps(fn)
         def cached(*args, **kwargs):
-            with torch.inference_mode(False):
+            with spans.annotate(spans.BUILD), torch.inference_mode(False):
                 return fn(*args, **kwargs)
         return cached
     return wrap

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import spans
 from ..core.resize import resize_bilinear
 from ..ops.unfold import unfold
 
@@ -232,13 +233,16 @@ def estimate_resized(model: nn.Module, img1, img2, multiple: int,
     model's device.  Callers run it under ``torch.inference_mode()``."""
     param = next(model.parameters())
     batched = np.ndim(img1) == 4
-    x1, x2 = (_to_nchw(i if batched else i[None], param.device, param.dtype)
-              for i in (img1, img2))
-    H, W = x1.shape[-2:]
-    Hp, Wp = _pad_to(H, multiple), _pad_to(W, multiple)
-    flow = model(resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp)),
-                 **forward_kwargs)
-    flow = resize_bilinear(flow, (H, W))
-    # Python scalars are rounded to fp32 first, as the reference's fp32 scale
-    flow = torch.stack([flow[:, 0] * (W / Wp), flow[:, 1] * (H / Hp)], -1)
-    return flow if batched else flow[0]
+    with spans.annotate(spans.MODEL_RESIZE_IN):
+        x1, x2 = (_to_nchw(i if batched else i[None], param.device, param.dtype)
+                  for i in (img1, img2))
+        H, W = x1.shape[-2:]
+        Hp, Wp = _pad_to(H, multiple), _pad_to(W, multiple)
+        x1, x2 = resize_bilinear(x1, (Hp, Wp)), resize_bilinear(x2, (Hp, Wp))
+    with spans.annotate(spans.MODEL_FORWARD):
+        flow = model(x1, x2, **forward_kwargs)
+    with spans.annotate(spans.MODEL_RESIZE_OUT):
+        flow = resize_bilinear(flow, (H, W))
+        # Python scalars are rounded to fp32 first, as the reference's fp32 scale
+        flow = torch.stack([flow[:, 0] * (W / Wp), flow[:, 1] * (H / Hp)], -1)
+        return flow if batched else flow[0]

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core import spans
 from ..core.warp import warp_with_mask
 from ..ops.correlation import local_correlation
 from .common import Conv, Deconv, estimate_resized, fp32_convolutions, in_fp32, leaky
@@ -137,17 +138,20 @@ class PWCNet(nn.Module):
 
     def _forward(self, img1, img2, return_pyramid):
         B = img1.shape[0]
-        # both frames through the extractor in one batch
-        feats = self.extractor(torch.cat([img1, img2], 0))
+        with spans.annotate(spans.PWCNET_EXTRACTOR):
+            # both frames through the extractor in one batch
+            feats = self.extractor(torch.cat([img1, img2], 0))
         prev = None
         pyramid = {}
         for level in (6, 5, 4, 3, 2):
             f = feats[level - 1]
-            prev = getattr(self, f"decoder{level}")(f[:B], f[B:], prev)
+            with spans.annotate(spans.PWCNET_DECODER[level]):
+                prev = getattr(self, f"decoder{level}")(f[:B], f[B:], prev)
             pyramid[level] = prev[0]
         flow, feat = prev
-        pyramid[2] = flow.float() + self.refiner(feat).float()
-        out = pyramid[2] * 20.0
+        with spans.annotate(spans.PWCNET_REFINER):
+            pyramid[2] = flow.float() + self.refiner(feat).float()
+            out = pyramid[2] * 20.0
         return (out, pyramid) if return_pyramid else out
 
 

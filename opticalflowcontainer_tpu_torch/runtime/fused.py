@@ -30,6 +30,7 @@ from ..classical.farneback import (
     farneback_stream_planes,
     farneback_stream_step,
 )
+from ..core import spans
 from ..core.color import bgr_to_gray
 from ..core.device import device_scope, resolve_device
 from ..models.common import cast_params
@@ -45,35 +46,37 @@ def _aggregate_u(u: torch.Tensor, mask: torch.Tensor | None,
     """Mean or median of ``u`` over ``mask`` (all of ``u`` when the mask is
     None or all False, as ``VelocityEstimator.update`` does), NaN scrubbed.
     The median of an even count is the mean of the two middle values."""
-    u = u.float()
-    if aggregate == "mean":
-        full = u.mean()
-    else:
-        full = torch.quantile(u.reshape(-1), 0.5)
-    if mask is None:
-        return torch.nan_to_num(full)
-    # an all-False mask falls back to the full frame: without it an empty
-    # junction mask yields NaN (median) / 0 (mean) and poisons the smoothing
-    if aggregate == "mean":
-        m = mask.float()
-        masked = (u * m).sum() / m.sum().clamp_min(1.0)
-    else:
-        masked = torch.nanquantile(
-            torch.where(mask, u, torch.nan).reshape(-1), 0.5)
-    return torch.nan_to_num(torch.where(mask.any(), masked, full))
+    with spans.annotate(spans.STREAM_AGGREGATE):
+        u = u.float()
+        if aggregate == "mean":
+            full = u.mean()
+        else:
+            full = torch.quantile(u.reshape(-1), 0.5)
+        if mask is None:
+            return torch.nan_to_num(full)
+        # an all-False mask falls back to the full frame: without it an empty
+        # junction mask yields NaN (median) / 0 (mean) and poisons the smoothing
+        if aggregate == "mean":
+            m = mask.float()
+            masked = (u * m).sum() / m.sum().clamp_min(1.0)
+        else:
+            masked = torch.nanquantile(
+                torch.where(mask, u, torch.nan).reshape(-1), 0.5)
+        return torch.nan_to_num(torch.where(mask.any(), masked, full))
 
 
 def _upload(frames, mask, device: torch.device):
     """Frames (numpy or tensor, uploaded as they are: uint8 stays uint8)
     and the optional boolean mask on ``device``."""
-    x = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(frames))
-    m = None
-    if mask is not None:
-        m = (mask if isinstance(mask, torch.Tensor)
-             else torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)))
-        m = m.to(device, torch.bool)
-    return x.to(device), m
+    with spans.annotate(spans.STREAM_UPLOAD):
+        x = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(frames))
+        m = None
+        if mask is not None:
+            m = (mask if isinstance(mask, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)))
+            m = m.to(device, torch.bool)
+        return x.to(device), m
 
 
 class FusedFarnebackStream:
@@ -112,12 +115,13 @@ class FusedFarnebackStream:
 
     def step(self, frame: np.ndarray, mask: np.ndarray | None = None):
         """du (0-dim device fp32 tensor, pixels), or None on the first frame."""
-        x, m = _upload(frame, mask, self.device)
-        if self._state is None:
-            self._state = farneback_stream_planes(
-                self._gray(x), device=self.device, **self.fb_kwargs)
-            return None
-        return self._advance(x, m)
+        with spans.annotate(spans.STREAM_STEP):
+            x, m = _upload(frame, mask, self.device)
+            if self._state is None:
+                self._state = farneback_stream_planes(
+                    self._gray(x), device=self.device, **self.fb_kwargs)
+                return None
+            return self._advance(x, m)
 
     def step_many(self, frames: np.ndarray, mask: np.ndarray | None = None):
         """``frames`` [K, H, W(, 3)] -> [K] displacements: one upload, then
@@ -143,7 +147,9 @@ def make_fused_farneback_backend(aggregate: str = "mean", *, device=None,
         with device_scope(stream.device):
             if stream._state is None:
                 stream.step(prev, mask)
-            return float(stream.step(cur, mask))
+            du = stream.step(cur, mask)
+            with spans.annotate(spans.STREAM_WAIT):
+                return float(du)
 
     backend.wants_color = True
     backend.returns_displacement = True
@@ -209,11 +215,12 @@ class FusedModelStream:
 
     def step(self, frame: np.ndarray, mask: np.ndarray | None = None):
         """du (0-dim device fp32 tensor, pixels), or None on the first frame."""
-        x, m = _upload(frame, mask, self.device)
-        if self._prev is None:
-            self._prev = self._normalize(x)
-            return None
-        return self._advance(x, m)
+        with spans.annotate(spans.STREAM_STEP):
+            x, m = _upload(frame, mask, self.device)
+            if self._prev is None:
+                self._prev = self._normalize(x)
+                return None
+            return self._advance(x, m)
 
     def step_many(self, frames: np.ndarray, mask: np.ndarray | None = None):
         """``frames`` [K, H, W, 3] -> [K] displacements: one upload, then
@@ -239,7 +246,9 @@ def make_fused_model_backend(model, estimate_fn: Callable,
         with device_scope(stream.device):
             if stream._prev is None:
                 stream.step(prev, mask)
-            return float(stream.step(cur, mask))
+            du = stream.step(cur, mask)
+            with spans.annotate(spans.STREAM_WAIT):
+                return float(du)
 
     backend.wants_color = True
     backend.returns_displacement = True

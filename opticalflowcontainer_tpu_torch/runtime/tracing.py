@@ -3,7 +3,9 @@ the reference's ``runtime/tracing.py``, which wraps ``jax.profiler``):
 
 - :func:`trace` -- context manager writing a Chrome trace of the host and
   the card (``torch.profiler``);
-- :func:`annotate` -- a named span on that trace's timeline;
+- :func:`annotate` -- a named span on that trace's timeline, free when no
+  profiler runs (``core.spans.annotate``; the program's own spans, named
+  ``ofc.*``, are listed there);
 - :func:`device_memory_stats` -- per CUDA device, the memory PyTorch's
   allocator holds now and at its peak, and the card's total;
 - :func:`start_memory_monitor` -- those stats sampled into a CSV from a
@@ -17,6 +19,8 @@ import threading
 import time
 
 import torch
+
+from ..core.spans import annotate  # noqa: F401  (the package's span primitive)
 
 
 @contextlib.contextmanager
@@ -32,11 +36,6 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def annotate(name: str):
-    """Named span for the trace timeline (usable as context manager)."""
-    return torch.profiler.record_function(name)
 
 
 def device_memory_stats() -> list[dict]:
