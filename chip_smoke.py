@@ -19,10 +19,15 @@ seconds:
    levels, and box at 41 (above the TPU kernel's limit) and 101 (opt-in
    shared memory) at 720p, each naming the kernel variant and tile that
    ran; timed beside its bound at each of those shapes;
+3b. K5 farneback_prep vs its plain version at every pyramid level of the
+   720p clip's 7 frames, the 1080p two-camera clip's 14 and a 640x480
+   stream frame (poly_n 5 and 7), one launch a call; timed beside its
+   bound, with both of its tiles at each level (the data of its tile
+   choice);
 4. the main path: farneback_clip on a 720p T=7 clip of a texture with a
    known subpixel translation: EPE against it, the kernel launch counts of
-   one call, ms per call and fields/s; and the clip on the card vs the CPU
-   on a small input;
+   one call (K1, K2 and K5), ms per call and fields/s; and the clip on the
+   card vs the CPU on a small input;
 5. the stream at 640x480: FusedFarnebackStream and the flow-node backend on
    uint8 BGR frames with a known shift; VelocityEstimator m/s; step_many ==
    step bit for bit; per-frame latency (p50, p99) over a 400-frame window;
@@ -78,7 +83,7 @@ seconds:
    pairs/s and the device time by part (all-pairs product, pyramid,
    lookup, convolutions, the rest); RAFT-small also as a 200-frame
    FusedModelStream at iters=8, the demo's.  Phases 16-18 launch none of
-   K1-K4 (their wrappers' counters hold it);
+   K1-K5 (their wrappers' counters hold it);
 19. and 20. NeuFlowLite at 640x480 and NeuFlow-v2 at 768x432 (the
    reference NeuFlow node's size) on seeded weights: K3 and K4 launches
    per estimate (2 and 2, 9 and 9), the kernel path against the plain path
@@ -540,8 +545,100 @@ def k2_phase(torch, dev, seed=1) -> dict:
             "bound_by": head["bound_by"], "library_ms": None, "shapes": shapes}
 
 
+# [frames, H, W] K5 is checked and timed at: the 720p clip's T=7 frames,
+# the 1080p two-camera clip's 14 and a 640x480 stream frame
+K5_SHAPES = ((7, 720, 1280), (14, 1080, 1920), (1, 480, 640))
+
+
+def k5_bytes_flops(N: int, H: int, W: int, lh: int, lw: int, taps: int,
+                   poly_n: int) -> tuple[int, int]:
+    """K5's bound at one level: each frame read once and the five planes
+    written once (fp32); the operations of the blur at the slots (two
+    source rows a level row, over the frame's columns; then two columns a
+    level column), the resize and the expansion (three vertical and six
+    horizontal passes of 2 poly_n + 1 taps, 10 for the planes)."""
+    n = lh * lw
+    ry, rx = (1 if lh == H else 2), (1 if lw == W else 2)
+    t = 2 * poly_n + 1
+    blur = 2 * taps * ry * lh * (W + rx * lw)
+    flops = N * (blur + (6 * n if ry * rx > 1 else 0) + (18 * t + 10) * n)
+    return 4 * N * (H * W + 5 * n), flops
+
+
+def k5_phase(torch, dev, seed=4) -> dict:
+    from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.ops import farneback_prep as k5
+
+    rng = np.random.default_rng(seed)
+    tol = 1e-5
+    worst = 0.0
+    shapes = []
+    for N, H, W in K5_SHAPES:
+        img = torch.from_numpy(rng.uniform(0, 255, (N, H, W)).astype(np.float32)).to(dev)
+        floor = 1e-2 * float(img.abs().max())
+        levels = []
+        for k in range(fb._num_levels(H, W, 3, 0.5) + 1):
+            size, blur = fb._level_size(H, W, 0.5**k), fb._level_taps(k, 0.5)
+            # 5 and 7 unrolled, 3 the variant that takes poly_n at run time
+            for poly_n, sigma in ((5, 1.2), (7, 1.5), (3, 0.9)):
+                before = k5.farneback_prep.launches
+                got = fb._level_planes(img, H, W, k, 0.5, poly_n, sigma)
+                want = k5.farneback_prep_plain(img, size, blur, poly_n, sigma)
+                torch.cuda.synchronize()
+                require(k5.farneback_prep.launches == before + 1,
+                        f"K5 [{N}, {H}, {W}] level {k}: one launch a call")
+                # axx and ayy at levels 2 and 3 cancel the level's mean:
+                # their scale has a floor (tests/test_torch_gpu.py)
+                scale = want.abs().amax(dim=(0, 2, 3))
+                if k >= 2:
+                    scale[2:4] = torch.clamp(scale[2:4], min=floor)
+                gap = float(((got - want).abs().amax(dim=(0, 2, 3)) / scale).max())
+                worst = max(worst, gap)
+                require(gap <= tol, f"K5 [{N}, {H}, {W}] level {k} poly_n {poly_n} "
+                                    f"agrees with its plain version ({gap:.2e})")
+            tile = k5.choose_tile(N, *size, len(blur) // 2)
+            out = torch.empty((N, 5, *size), device=dev)
+            by_tile = {t: graph_ms(lambda t=t: k5.launch(img, out, blur, 5, 1.2, t))
+                       for t in k5.TILES}
+            ms = cuda_ms(lambda: fb._level_planes(img, H, W, k, 0.5, 5, 1.2), reps=20)
+            plain_ms = cuda_ms(lambda: k5.farneback_prep_plain(img, size, blur, 5, 1.2),
+                               reps=3)
+            n_bytes, n_flops = k5_bytes_flops(N, H, W, *size, len(blur), 5)
+            b_ms, by = bound_ms(n_bytes, n_flops)
+            print(f"K5 [{N}, {H}, {W}] level {k} {size}, {len(blur)}-tap blur: tile "
+                  f"{tile}; {ms:.4f} ms per launch, events (graph replay "
+                  f"{by_tile[tile]:.4f} ms, the other tile "
+                  f"{by_tile[16 if tile == 32 else 32]:.4f} ms; plain {plain_ms:.4f} ms; "
+                  f"bound {b_ms:.4f} ms by {by}: {n_bytes / 1e6:.1f} MB, "
+                  f"{n_flops / 1e9:.2f} GFLOP; {b_ms / by_tile[tile]:.1%} of it by graph)")
+            levels.append({"k": k, "size": list(size), "tile": tile, "ms": ms,
+                           "graph_ms": by_tile[tile], "graph_ms_by_tile": by_tile,
+                           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by})
+            del out
+        call = {key: sum(lv[key] for lv in levels)
+                for key in ("ms", "graph_ms", "plain_ms", "bound_ms")}
+        # a call is bound by what bounds most of its levels' time
+        call["bound_by"] = max(("bytes", "flops"), key=lambda by: sum(
+            lv["bound_ms"] for lv in levels if lv["bound_by"] == by))
+        print(f"K5 [{N}, {H}, {W}], the {len(levels)} levels of a call: {call['ms']:.4f} ms "
+              f"(events; graph {call['graph_ms']:.4f} ms; plain {call['plain_ms']:.4f} ms, "
+              f"bound {call['bound_ms']:.4f} ms: {call['bound_ms'] / call['graph_ms']:.1%})")
+        shapes.append({"shape": [N, H, W], **call, "levels": levels})
+        del img
+    print(f"K5 worst gap over the plane's scale {worst:.2e} (tolerance {tol:.0e}: "
+          f"fp32, FMA contraction and the order of the sums differ)")
+    head = shapes[0]
+    return {"name": "farneback_prep", "route": "cuda",
+            "source": "opticalflowcontainer_tpu_torch/ops/csrc/farneback_prep.cu",
+            "replaces": None, "max_abs_err": worst, "ms": head["ms"],
+            "graph_ms": head["graph_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
 def clip_phase(torch, dev, trace_dir, H=720, W=1280, T=7, reps=5) -> dict:
     from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.ops.farneback_prep import farneback_prep
     from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
     from opticalflowcontainer_tpu_torch.ops.solve2x2 import blur_solve
 
@@ -552,14 +649,18 @@ def clip_phase(torch, dev, trace_dir, H=720, W=1280, T=7, reps=5) -> dict:
     torch.cuda.synchronize()
     farneback_update.launches = 0
     blur_solve.launches = 0
+    farneback_prep.launches = 0
     flow = fb.farneback_clip(frames, device=dev)
     torch.cuda.synchronize()
     launches = {"farneback_update": farneback_update.launches,
-                "blur_solve": blur_solve.launches}
-    expect = (fb._num_levels(H, W, 3, 0.5) + 1) * 3
-    print(f"one farneback_clip call launched {launches} (expected {expect} each)")
-    require(all(n == expect for n in launches.values()),
-            "each kernel launched (levels+1)*iterations times per call")
+                "blur_solve": blur_solve.launches,
+                "farneback_prep": farneback_prep.launches}
+    levels = fb._num_levels(H, W, 3, 0.5) + 1
+    print(f"one farneback_clip call launched {launches} (expected {levels * 3} "
+          f"of K1 and K2, {levels} of K5)")
+    require(launches["farneback_update"] == launches["blur_solve"] == levels * 3,
+            "K1 and K2 launched (levels+1)*iterations times per call")
+    require(launches["farneback_prep"] == levels, "K5 launched once a level per call")
     require(tuple(flow.shape) == (T - 1, H, W, 2), f"flow shape {tuple(flow.shape)}")
     require(bool(torch.isfinite(flow).all()), "flow is finite")
     m = 40
@@ -683,6 +784,7 @@ def profile_path(torch, label: str, fn, trace_dir, trace_name: str) -> dict | No
 def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
                  fps=30.0) -> None:
     from opticalflowcontainer_tpu_torch.classical import farneback as fb
+    from opticalflowcontainer_tpu_torch.ops.farneback_prep import farneback_prep
     from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
     from opticalflowcontainer_tpu_torch.ops.solve2x2 import blur_solve
     from opticalflowcontainer_tpu_torch.runtime.fused import (
@@ -694,6 +796,7 @@ def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
     s.warmup(frames[0])
     farneback_update.launches = 0
     blur_solve.launches = 0
+    farneback_prep.launches = 0
     require(s.step(frames[0]) is None, "first frame seeds the state")
     dus, lat = [], []
     for f in frames[1:]:
@@ -703,18 +806,22 @@ def stream_phase(torch, dev, trace_dir, H=480, W=640, n=401, dx=1.5,
         lat.append((time.perf_counter() - t0) * 1e3)
         dus.append(du_px)
         require(abs(du_px - dx) < 0.1, f"stream du {du_px:.4f} near the shift {dx}")
-    per_frame = (fb._num_levels(H, W, 3, 0.5) + 1) * 3
+    levels = fb._num_levels(H, W, 3, 0.5) + 1
+    per_frame = levels * 3
     expect = per_frame * (n - 1)
     lat = np.array(lat)
     print(f"{W}x{H} stream, {n - 1} frames: du min {min(dus):.4f}, max "
           f"{max(dus):.4f} px (shift {dx}); launches {farneback_update.launches}, "
-          f"{blur_solve.launches} (expected {expect} each)")
+          f"{blur_solve.launches} (expected {expect} each), K5 "
+          f"{farneback_prep.launches} (expected {levels * n}: one a level a frame)")
     print(f"{W}x{H} stream per-frame latency over {len(lat)} frames (host clock, "
           f"numpy frame to synced du): p50 {np.percentile(lat, 50):.3f} ms, p99 "
           f"{np.percentile(lat, 99):.3f} ms, mean {lat.mean():.3f} ms, min "
           f"{lat.min():.3f} ms, max {lat.max():.3f} ms")
     require(farneback_update.launches == blur_solve.launches == expect,
             f"the stream launched both kernels {per_frame} times per frame")
+    require(farneback_prep.launches == levels * n,
+            "the stream launched K5 once a level for every frame, the seed included")
     k = 8
     s1 = FusedFarnebackStream(device=dev)
     s1.step(frames[0])
@@ -1516,24 +1623,24 @@ def model_stream_phase(torch, dev, trace_dir, H=480, W=640, n=201, dx=1.5,
     return launches
 
 
-def kernel_counts() -> dict:
-    """The four wrappers' launch counts (read after a path's run)."""
+def _counted() -> tuple:
     from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
+    from opticalflowcontainer_tpu_torch.ops.farneback_prep import farneback_prep
     from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
     from opticalflowcontainer_tpu_torch.ops.solve2x2 import blur_solve
     from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
 
-    return {f.__name__: f.launches for f in (farneback_update, blur_solve,
-                                             warp_bilinear, local_correlation)}
+    return (farneback_update, blur_solve, warp_bilinear, local_correlation,
+            farneback_prep)
+
+
+def kernel_counts() -> dict:
+    """The five wrappers' launch counts (read after a path's run)."""
+    return {f.__name__: f.launches for f in _counted()}
 
 
 def reset_counts() -> None:
-    from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
-    from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
-    from opticalflowcontainer_tpu_torch.ops.solve2x2 import blur_solve
-    from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
-
-    for f in (farneback_update, blur_solve, warp_bilinear, local_correlation):
+    for f in _counted():
         f.launches = 0
 
 
@@ -1580,6 +1687,14 @@ def node_phase(torch, dev, H=480, W=640, n=90, fps=30.0) -> dict:
         want = per_frame * (r["frames_processed"] + 1)
         require(counts["farneback_update"] == counts["blur_solve"] == want,
                 f"K1 and K2 launched {want} times ({per_frame} a flow)")
+        # K5 once a level a frame expanded: the plain backend expands both
+        # frames of every flow; the fused one each frame once, plus the
+        # stream's warm-up (a seed and a step) and the first pair's seed
+        levels = per_frame // 2
+        prep = levels * (r["frames_processed"] + 3 if fused
+                         else 2 * (r["frames_processed"] + 1))
+        require(counts["farneback_prep"] == prep,
+                f"K5 launched {prep} times ({levels} a frame expanded)")
         by_path[label] = counts
 
     # where a frame's time goes: ten frames through each demo backend
@@ -1642,6 +1757,8 @@ def node_phase(torch, dev, H=480, W=640, n=90, fps=30.0) -> dict:
             "the velocity is near the camera's ground truth")
     require(counts["farneback_update"] == counts["blur_solve"] == 4 * per_frame,
             "K1 and K2 ran on every frame")
+    require(counts["farneback_prep"] == 4 * per_frame,
+            "K5 expanded both frames of every flow once a level")
     by_path["bringup_flow_topic"] = counts
     return by_path
 
@@ -1662,7 +1779,8 @@ def batcher_phase(torch, dev, trace_dir, H=1080, W=1920, fps=60.0, seconds=6.0,
         MultiStreamFlow, make_stateful_batched_fused_farneback)
 
     kw = dict(levels=3, winsize=15, iterations=3)
-    per_batch = (fb._num_levels(H, W, 3, 0.5) + 1) * 3
+    levels = fb._num_levels(H, W, 3, 0.5) + 1
+    per_batch = levels * 3
     # gray frames as a decoder's luma plane hands them on: stream s moves
     # (s + 1) * dx px a frame, n_cycle frames pushed in a cycle
     frames = [plane_waves(torch, H, W, [((s + 1) * dx * t, 0.0) for t in range(n_cycle)],
@@ -1739,6 +1857,10 @@ def batcher_phase(torch, dev, trace_dir, H=1080, W=1920, fps=60.0, seconds=6.0,
     require(ms.fields == len(got[0]) + len(got[1]), "every field published")
     require(counts["farneback_update"] == counts["blur_solve"] == per_batch * ms.batches,
             f"K1 and K2 launched {per_batch} times a batch")
+    # K5 once a level a batch, and once a level for a batch's reseeded rows
+    prep = levels * (ms.batches + sum(1 for r in reseeded if r))
+    require(counts["farneback_prep"] == prep,
+            f"K5 launched {prep} times ({levels} a batch and a reseed)")
 
     ms_batch = cuda_ms(lambda: backend(*pair, [0, 1]), reps=10)
     ms_reseed = cuda_ms(lambda: backend(*pair, [0, 1], [True, True]), reps=10)
@@ -1861,8 +1983,8 @@ def assert_no_kernel_launches(what: str) -> None:
     """The paths of phases 16-18 reach none of K1-K4 (the reference's LK and
     RAFT reach no Pallas kernel): a stray route through one shows here."""
     counts = kernel_counts()
-    print(f"  {what}: launches of K1-K4 {counts} (expected none)")
-    require(not any(counts.values()), f"{what} launches none of K1-K4")
+    print(f"  {what}: launches of K1-K5 {counts} (expected none)")
+    require(not any(counts.values()), f"{what} launches none of K1-K5")
 
 
 def lk_phase(torch, dev, trace_dir, H=480, W=640, shift=(1.37, -0.62), n=90,
@@ -2057,7 +2179,7 @@ def raft_split(torch, fn) -> dict | None:
 def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
                n=201, seed=17) -> None:
     """Phase 17 (RAFT-small) or 18 (RAFT, ``large``) at 640x480 on seeded
-    weights: estimate at iters=12 launches none of K1-K4; card vs CPU with
+    weights: estimate at iters=12 launches none of K1-K5; card vs CPU with
     fp32 convolutions at 192x128; the served flow (the model holds its
     convolutions in fp32) against fp32, and what TF32 convolutions would
     give; final_only against the stacked flows; B=1 latency over 50 calls,
@@ -2259,7 +2381,7 @@ def neuflow_phase(torch, dev, trace_dir, v2: bool, n=201, fps=30.0) -> dict:
         if v2 else
         (neuflow, neuflow.NeuFlowLite, "NeuFlowLite", "neuflow_lite", (480, 640), 19))
     est = mod.estimate
-    expect = dict(farneback_update=0, blur_solve=0, **NEUFLOW_LAUNCHES[tag])
+    expect = dict(farneback_update=0, blur_solve=0, farneback_prep=0, **NEUFLOW_LAUNCHES[tag])
     model = seeded_neuflow(torch, cls, seed, dev)
     n_params = sum(p.numel() for p in model.parameters())
     i1, i2 = image_pairs(torch, H, W, 1, dev)
@@ -2561,6 +2683,8 @@ def eval_phase(torch, dev, H=480, W=640, n=32, shift=1.37) -> dict:
             "a finite farneback row over every pair")
     require(counts["farneback_update"] == counts["blur_solve"] == per_pair * n,
             f"K1 and K2 launched {per_pair} times a pair")
+    require(counts["farneback_prep"] == 2 * per_pair // 3 * n,
+            "K5 expanded both frames of every pair once a level")
     by_path["eval_farneback"] = counts
 
     pairs = fishnet_eval_pairs(2, H, W)
@@ -3621,6 +3745,8 @@ def video_phase(torch, dev, passes=5, fps=30.0) -> dict:
               f"{counts['farneback_update'] / pairs:g}, {counts['blur_solve'] / pairs:g}")
         require(counts["farneback_update"] == counts["blur_solve"] == 6 * pairs,
                 f"{label}: K1 and K2 launched 6 times a pair")
+        require(counts["farneback_prep"] == 6 * pairs,
+                f"{label}: K5 launched 6 times a pair (two frames, three levels)")
     print(f"  PNG decode alone (compiled, 640x480, filter None): {ms_png:.3f} ms")
     v = vel["video_mjpeg"]
     require(np.abs(v - v_true).max() <= 0.01 * v_true,
@@ -3750,7 +3876,7 @@ def packaged_family(torch, dev, method: str, pairs) -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     H, W = img1.shape[:2]
-    want = dict(farneback_update=0, blur_solve=0, **EVAL_LAUNCHES[method])
+    want = dict(farneback_update=0, blur_solve=0, farneback_prep=0, **EVAL_LAUNCHES[method])
     rms = float(fp32.square().mean().sqrt())
     print(f"  {label} ({npz}, {sum(p.numel() for p in model.parameters())} parameters) "
           f"at {W}x{H}: flow RMS {rms:.3f} px; one estimate launched {launches} "
@@ -3819,7 +3945,8 @@ def packaged_eval(run_eval, n_eval: int, card_name: str, by_path: dict) -> list:
         require(row["n"] == n_eval and np.isfinite(row["epe"]), f"{label}: a finite row")
     require([r["method"] for r in rows] == methods.split(","), "a row a method")
     per_pair = (fb._num_levels(480, 640, 3, 0.5) + 1) * 3  # cv2's defaults
-    want = {"farneback_update": n_eval * per_pair, "blur_solve": n_eval * per_pair}
+    want = {"farneback_update": n_eval * per_pair, "blur_solve": n_eval * per_pair,
+            "farneback_prep": n_eval * 2 * per_pair // 3}  # two frames a level
     want.update((k, n_eval * sum(EVAL_LAUNCHES[m][k] for m in PACKAGED))
                 for k in ("warp_bilinear", "local_correlation"))
     print(f"  run_eval --method {methods} --fishnet --n {n_eval}: "
@@ -3891,7 +4018,7 @@ def packaged_phase(torch, dev, n_eval=32, n_demo=90, steps=3) -> dict:
     require(r["error_mps"] is not None and r["error_mps"] < 0.010,
             "the packaged NeuFlowLite's smoothed velocity within 10 mm/s")
     want = {k: v * (r["frames_processed"] + 1) for k, v in
-            dict(farneback_update=0, blur_solve=0, **EVAL_LAUNCHES["neuflow"]).items()}
+            dict(farneback_update=0, blur_solve=0, farneback_prep=0, **EVAL_LAUNCHES["neuflow"]).items()}
     require(counts == want, f"the demo launched {want}")
     by_path["packaged_demo_neuflow"] = counts
 
@@ -3998,6 +4125,8 @@ def main() -> int:
         k1 = k1_phase(torch, dev)
     with phase("3 K2 blur_solve vs plain"):
         k2 = k2_phase(torch, dev)
+    with phase("3b K5 farneback_prep vs plain"):
+        k5 = k5_phase(torch, dev)
     with phase("4 720p T=7 clip (main path)"):
         by_path = {"farneback_clip": clip_phase(torch, dev, args.trace)}
     with phase("5 640x480 stream"):
@@ -4049,12 +4178,12 @@ def main() -> int:
     with phase("28 packaged weights (seven npz served, evaluated, fine-tuned)"):
         by_path.update(packaged_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
-    for k in (k1, k2, k3, k4):
+    for k in (k1, k2, k3, k4, k5):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()
                                  if n.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -12,8 +12,10 @@ OpenCV's operating conventions).  Per pyramid level, coarsest first:
    current flow and form the normal equations; K2 ``blur_solve``: winsize
    blur and 2x2 solve for the total displacement).
 
-Stages 1-2 are plain PyTorch ops (the reference leaves them to XLA); stage 3
-runs the two CUDA kernels on the card and their plain versions on the CPU.
+Stages 1-2 are one launch of K5 ``farneback_prep`` a level on the card (the
+reference leaves them to XLA) and its plain version's shifted-slice sums on
+the CPU; stage 3 runs the two CUDA kernels on the card and their plain
+versions on the CPU.
 Layout is plane-major ([N, 5, lh, lw] expansion planes) and storage fp32.
 
 The clip and stream entry points expand every frame once per level and
@@ -24,15 +26,14 @@ this module's own stages move.
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from ..core import spans
 from ..core.device import resolve_device
-from ..core.filters import _corr1d, _pad2d, _sepconv, gaussian_kernel_1d
+from ..core.filters import gaussian_kernel_1d
 from ..core.resize import resize_bilinear
+from ..ops.farneback_prep import _poly_planes, farneback_prep
 from ..ops.farneback_update import farneback_update
 from ..ops.solve2x2 import blur_solve
 
@@ -51,42 +52,6 @@ def check_flow_kwargs(caller: str, kwargs: dict) -> None:
     if unknown:
         raise TypeError(f"{caller} got unexpected keyword(s) {sorted(unknown)}; "
                         f"supported: {sorted(FLOW_KWARGS)}")
-
-
-@functools.lru_cache(maxsize=None)
-def _poly_exp_inverse(n: int, sigma: float) -> tuple:
-    """1-D kernels {g, x g, x^2 g} and the needed elements of the inverse
-    Gaussian moment matrix for window half-size n."""
-    x = np.arange(-n, n + 1, dtype=np.float64)
-    g = np.exp(-(x * x) / (2.0 * sigma * sigma))
-    g /= g.sum()
-    m2 = float((x * x * g).sum())
-    m4 = float((x**4 * g).sum())
-    G = np.array([
-        [1.0, 0, 0, m2, m2, 0],
-        [0, m2, 0, 0, 0, 0],
-        [0, 0, m2, 0, 0, 0],
-        [m2, 0, 0, m4, m2 * m2, 0],
-        [m2, 0, 0, m2 * m2, m4, 0],
-        [0, 0, 0, 0, 0, m2 * m2],
-    ])
-    invG = np.linalg.inv(G)
-    return g, x * g, x * x * g, invG[1, 1], invG[0, 3], invG[3, 3], invG[5, 5]
-
-
-def _poly_planes(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
-    """Polynomial-expansion planes [..., 5, H, W] = (bx, by, axx, ayy, qxy)
-    of [..., H, W] images; replicate border.  The six separable correlations
-    share one padded image and three vertical passes."""
-    g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_inverse(n, float(sigma))
-    x = _pad2d(img.float(), n, n, "replicate")
-    tg, txg, txxg = (_corr1d(x, k, x.dim() - 2) for k in (g, xg, xxg))
-    w = x.dim() - 1
-    s0, sx, sxx = (_corr1d(tg, k, w) for k in (g, xg, xxg))
-    sy, sxy = _corr1d(txg, g, w), _corr1d(txg, xg, w)
-    syy = _corr1d(txxg, g, w)
-    return torch.stack([ig11 * sx, ig11 * sy, ig03 * s0 + ig33 * sxx,
-                        ig03 * s0 + ig33 * syy, ig55 * sxy], dim=-3)
 
 
 def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
@@ -113,19 +78,24 @@ def _level_size(H: int, W: int, scale: float) -> tuple[int, int]:
     return int(round(H * scale)), int(round(W * scale))
 
 
+def _level_taps(k: int, pyr_scale: float) -> np.ndarray:
+    """Pyramid level ``k``'s Gaussian at full resolution: sigma =
+    (1/scale - 1)/2, cv2's kernel size (at least 3 taps)."""
+    sigma = (1.0 / pyr_scale**k - 1.0) * 0.5
+    return gaussian_kernel_1d(max(int(round(sigma * 5)) | 1, 3), sigma)
+
+
 def _level_planes(img: torch.Tensor, H: int, W: int, k: int, pyr_scale: float,
                   poly_n: int, poly_sigma: float) -> torch.Tensor:
     """[N, H, W] full-resolution frames -> [N, 5, lh, lw] expansion planes of
     pyramid level ``k``: reflect101 blur at full resolution, bilinear resize,
-    polynomial expansion."""
-    scale = pyr_scale**k
-    sigma = (1.0 / scale - 1.0) * 0.5
-    smooth_sz = max(int(round(sigma * 5)) | 1, 3)
+    polynomial expansion: K5 on the card, its plain version's
+    shifted-slice sums on the CPU."""
     with spans.annotate(spans.FARNEBACK_PREP):
-        kern = gaussian_kernel_1d(smooth_sz, sigma)
-        level = resize_bilinear(_sepconv(img, kern, kern, "reflect101"),
-                                _level_size(H, W, scale))
-        return _poly_planes(level, poly_n, poly_sigma).contiguous()
+        kern = _level_taps(k, pyr_scale)
+        size = _level_size(H, W, pyr_scale**k)
+        return farneback_prep(img.contiguous(), size, kern, poly_n,
+                              poly_sigma)
 
 
 def _pyramid_flow(planes_at, N: int, H: int, W: int, n_levels: int,
@@ -322,19 +292,6 @@ def farneback_stream_step(prev_planes, gray, pyr_scale: float = 0.5,
     return (flow if batched else flow[0]), tuple(new_planes)
 
 
-def _corr_passes(taps: int) -> int:
-    """fp32 passes over the output of :func:`~..core.filters._corr1d` with
-    ``taps`` taps: a multiply per tap (read, write) and an add per tap
-    after the first (two reads, a write)."""
-    return 2 * taps + 3 * (taps - 1)
-
-
-def _pad_passes(rows: int, cols: int, p: int) -> int:
-    """Values moved by ``_pad2d`` of [rows, cols] by p: one gather of the
-    rows, one of the columns (each output value read and written)."""
-    return 2 * (rows + 2 * p) * cols + 2 * (rows + 2 * p) * (cols + 2 * p)
-
-
 def _resize_passes(src: tuple, dst: tuple) -> int:
     """Values moved by ``resize_bilinear`` from [src] to [dst]: per resized
     axis two gathers (read, write), two weightings (read, write) and an add
@@ -357,16 +314,12 @@ def farneback_traffic_breakdown(H: int, W: int, levels: int = 3,
     roofline (``tools/stage_roofline.py``).  Same name and keys as the
     reference's, counting the port's own traffic, every array fp32:
 
-    - ``poly``, the prep stage of each level, as the shifted-slice sums run
-      it: the reflect101 blur at full resolution (its pads, ``smooth_sz``
-      taps down, then across), the bilinear resize to the level, and the
-      polynomial expansion at cv2's default ``poly_n`` = 5, which every
-      timed caller uses (its replicate pads, three vertical and six
-      horizontal correlations of 11 taps, the five planes' weighted sums
-      and their stack).  Every elementwise operation counts
-      its inputs read and its output written once.  A clip of
-      ``clip_frames`` frames expands each frame once for T - 1 fields (the
-      port shares every level); pairs (``None``) expand two frames a field;
+    - ``poly``, the prep stage of each level, as K5 runs it: the frame
+      read once (fp32) and the level's five planes written once; the
+      halo's and the blur's re-reads come from L1/L2 and are not counted,
+      as K1's and K2's are not.  A clip of ``clip_frames`` frames expands
+      each frame once for T - 1 fields (the port shares every level);
+      pairs (``None``) expand two frames a field;
     - ``update``, K1's exact warp: R0's 5 planes, u, v and M's 5 per pixel,
       and R1's 5 where the sample is in bounds (``oob_share`` of the pixels
       are not: their R1 is not read; 0 counts every pixel), 68 bytes a
@@ -389,8 +342,6 @@ def farneback_traffic_breakdown(H: int, W: int, levels: int = 3,
     if not 0.0 <= oob_share <= 1.0:
         raise ValueError(f"oob_share={oob_share} is not a share")
     exp = T / (T - 1.0) if T else 2.0
-    poly_n = 5
-    taps = 2 * poly_n + 1
     f32 = 4
     n_levels = _num_levels(H, W, levels, pyr_scale)
     out = {"poly": 0.0, "update": 0.0, "solve": 0.0, "resize": 0.0,
@@ -400,14 +351,7 @@ def farneback_traffic_breakdown(H: int, W: int, levels: int = 3,
         scale = pyr_scale**k
         lh, lw = _level_size(H, W, scale)
         n = lh * lw
-        ks = max(int(round((1.0 / scale - 1.0) * 0.5 * 5)) | 1, 3)
-        p = ks // 2
-        blur = (_pad_passes(H, W, p) + _corr_passes(ks) * H * (W + 2 * p)
-                + _corr_passes(ks) * H * W)
-        expand = (_pad_passes(lh, lw, poly_n)
-                  + 3 * _corr_passes(taps) * lh * (lw + 2 * poly_n)
-                  + 6 * _corr_passes(taps) * n + 30 * n)
-        poly = f32 * (blur + _resize_passes((H, W), (lh, lw)) + expand)
+        poly = f32 * (H * W + 5 * n)
         upd = f32 * (12 + 5 * (1.0 - oob_share)) * n
         slv = f32 * 7 * n
         if prev_size is None:

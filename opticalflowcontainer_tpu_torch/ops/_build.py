@@ -54,6 +54,12 @@ _SIGNATURES = {
     # tile_w, tile_h, taps, splits, chunk, window stride, 16-byte copies,
     # stages, smem, stream
     "ofc_correlation": (_I, [_P, _P, _P, _P] + [_I] * 16 + [_P]),
+    # img, out, frames, H, W, lh, lw, row_pad, col_pad, row_lo, row_hi,
+    # row_w, col_lo, col_hi, col_w, blur, p, poly_n, poly taps (host),
+    # tile, span_h, span_w, strip_rows, smem, stream
+    "ofc_farneback_prep": (_I, [_P, _P, _I, _I, _I, _I, _I] + [_P] * 9
+                           + [_I, _I, ctypes.POINTER(ctypes.c_float)]
+                           + [_I] * 5 + [_P]),
     # host code: bgr, H, W, grid_area, area_tol, cluster_eps,
     # min_cluster_pts, rb_lo, rb_hi, rotated, out_xy, max_out
     "ofc_detect_junctions": (_I, [_P, _I, _I, _D, _D, _D, _I, _D, _D, _I,

@@ -12,6 +12,7 @@ import torch
 from opticalflowcontainer_tpu_torch.classical import farneback as fb
 from opticalflowcontainer_tpu_torch.models import pwcnet
 from opticalflowcontainer_tpu_torch.ops import correlation as k4
+from opticalflowcontainer_tpu_torch.ops import farneback_prep as k5
 from opticalflowcontainer_tpu_torch.ops import farneback_update as k1
 from opticalflowcontainer_tpu_torch.ops import solve2x2 as k2
 from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
@@ -71,12 +72,115 @@ def test_clip_on_card_matches_cpu(cuda):
     base = rng.uniform(0, 255, (96, 140)).astype(np.float32)
     frames = np.stack([base[:, 2 * t:2 * t + 128] for t in range(3)])
     k1.farneback_update.launches = k2.blur_solve.launches = 0
+    k5.farneback_prep.launches = 0
     on_card = fb.farneback_clip(frames, device=cuda).cpu().numpy()
-    n = (fb._num_levels(96, 128, 3, 0.5) + 1) * 3
-    assert k1.farneback_update.launches == k2.blur_solve.launches == n
+    levels = fb._num_levels(96, 128, 3, 0.5) + 1
+    assert k1.farneback_update.launches == k2.blur_solve.launches == levels * 3
+    assert k5.farneback_prep.launches == levels  # one prep launch a level
     on_cpu = fb.farneback_clip(frames, device="cpu").numpy()
     d = np.abs(on_card - on_cpu)
     assert d.mean() <= 1e-3 and d.max() <= 1e-2, (d.mean(), d.max())
+
+
+def _level_args(H, W, k, pyr=0.5):
+    """Level k's size and Gaussian taps, as ``_level_planes`` makes them."""
+    return fb._level_size(H, W, pyr**k), fb._level_taps(k, pyr)
+
+
+def _prep_gap(got, want, frames, floored=()):
+    """Largest |got - want| of each plane over its scale: the plane's max
+    abs, or for the planes ``floored`` a hundredth of the frames' max abs
+    where that is larger (see ``test_prep_kernel_matches_plain``)."""
+    scale = want.abs().amax(dim=(0, 2, 3))
+    for c in floored:
+        scale[c] = max(float(scale[c]), 1e-2 * float(frames.abs().max()))
+    return float(((got - want).abs().amax(dim=(0, 2, 3)) / scale).max())
+
+
+def _floored(H, W, k):
+    """The planes whose scale has a floor: every plane of frames that blur
+    to constants, axx and ayy (2, 3) at levels 2 and coarser."""
+    return range(5) if (H, W) == (2, 2) else (2, 3) if k >= 2 else ()
+
+
+@pytest.mark.parametrize("shape", [(2, 45, 70), (1, 481, 641), (6, 720, 1280), (3, 2, 2)])
+@pytest.mark.parametrize("poly_n,sigma", [(5, 1.1), (7, 1.5)])
+def test_prep_kernel_matches_plain(shape, poly_n, sigma, cuda):
+    """K5 at every pyramid level against the plain ``_level_planes``
+    operations on the same frames (on the card they equal the CPU's bit
+    for bit), at the wrapper's tile and the other one.  Tolerance 1e-5 of
+    each plane's max abs: fp32 on both sides, the kernel with FMA
+    contraction and another order of the sums.  For axx and ayy at levels 2
+    and 3 the scale is at least a hundredth of the frames' max abs: there
+    the level's mean (~127) cancels in ig03 s0 + ig33 sxx, and the plain
+    version alone is up to 1.3e-5 of those planes' max from float64 (720p,
+    poly_n 7, measured on the CPU; bx, by and qxy at most 2.8e-6).  (3, 2,
+    2) frames blur to constants (reflect101 of two pixels), so all their
+    planes are rounding noise around 0 and take the same floor.  One launch
+    a call."""
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)).to(cuda)
+    N, H, W = shape
+    for k in range(fb._num_levels(H, W, 3, 0.5) + 1):
+        size, blur = _level_args(H, W, k)
+        want = k5.farneback_prep_plain(img, size, blur, poly_n, sigma)
+        before = k5.farneback_prep.launches
+        got = fb._level_planes(img, H, W, k, 0.5, poly_n, sigma)
+        torch.cuda.synchronize()
+        assert k5.farneback_prep.launches == before + 1
+        assert _prep_gap(got, want, img, _floored(H, W, k)) <= 1e-5, k
+        for tile in k5.TILES:
+            other = torch.empty_like(want)
+            k5.launch(img, other, blur, poly_n, sigma, tile)
+            torch.cuda.synchronize()
+            assert _prep_gap(other, want, img, _floored(H, W, k)) <= 1e-5, (k, tile)
+
+
+def test_prep_kernel_64bit_offsets(cuda):
+    """frames * 5 * H * W >= 2^31 takes the 64-bit offsets: the last frames'
+    planes lie past 2^31 and must equal the plain version's of those
+    frames.  Needs ~12 GB free on the card, else skips."""
+    N, H, W = 210, 1080, 1920
+    assert N * 5 * H * W >= 2**31
+    free, _ = torch.cuda.mem_get_info(cuda)
+    if free < 12 * 2**30:
+        pytest.skip(f"needs ~12 GB of free device memory, {free / 2**30:.1f} GB free")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.rand((N, H, W), generator=g, device=cuda) * 255
+    size, blur = _level_args(H, W, 0)
+    got = k5.farneback_prep(img, size, blur, 5, 1.1)
+    for f in (slice(0, 1), slice(N - 2, N)):
+        want = k5.farneback_prep_plain(img[f].contiguous(), size, blur, 5, 1.1)
+        assert _prep_gap(got[f], want, img[f]) <= 1e-5
+    del img, got
+
+
+@pytest.mark.parametrize("poly_n,sigma", [(1, 0.6), (3, 0.9), (9, 2.0), (15, 3.2)])
+def test_prep_kernel_runs_any_poly_n(poly_n, sigma, cuda):
+    """poly_n other than 5 and 7 run the kernel's variant that reads it at
+    run time, held to the plain version as ``test_prep_kernel_matches_plain``
+    holds the unrolled ones, at every level and both tiles; past
+    ``MAX_POLY_N`` the wrapper raises on the card."""
+    rng = np.random.default_rng(4)
+    N, H, W = 2, 481, 641
+    img = torch.from_numpy(rng.uniform(0, 255, (N, H, W)).astype(np.float32)).to(cuda)
+    for k in range(fb._num_levels(H, W, 3, 0.5) + 1):
+        size, blur = _level_args(H, W, k)
+        want = k5.farneback_prep_plain(img, size, blur, poly_n, sigma)
+        before = k5.farneback_prep.launches
+        got = fb._level_planes(img, H, W, k, 0.5, poly_n, sigma)
+        torch.cuda.synchronize()
+        assert k5.farneback_prep.launches == before + 1
+        assert _prep_gap(got, want, img, _floored(H, W, k)) <= 1e-5, k
+        for tile in k5.TILES:
+            other = torch.empty_like(want)
+            k5.launch(img, other, blur, poly_n, sigma, tile)
+            torch.cuda.synchronize()
+            assert _prep_gap(other, want, img, _floored(H, W, k)) <= 1e-5, (k, tile)
+    size, blur = _level_args(H, W, 1)
+    for bad in (0, k5.MAX_POLY_N + 1):
+        with pytest.raises(ValueError, match="poly_n"):
+            k5.farneback_prep(img, size, blur, bad, 1.0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -1,5 +1,9 @@
-"""The port's two Farneback kernels, K1 ``farneback_update`` and K2
-``blur_solve``, held against the JAX package on the CPU.
+"""The port's three Farneback kernels, K1 ``farneback_update``, K2
+``blur_solve`` and K5 ``farneback_prep``: K1 and K2 held against the JAX
+package on the CPU; K5's wrapper, its launch arithmetic and its CPU path
+(K5 replaces no TPU kernel: its plain version is ``_level_planes``'
+operations, which ``tests/test_torch_farneback.py`` holds against JAX
+through ``poly_exp`` and the flow).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version, which is
 what these tests compare; the CUDA kernels themselves are compared with the
@@ -15,6 +19,9 @@ import jax.numpy as jnp
 import opticalflowcontainer_tpu.classical.farneback as jfb
 from opticalflowcontainer_tpu.ops.blockwarp import block_warp_farneback_update
 from opticalflowcontainer_tpu.ops.solve2x2 import blur_solve_2x2
+from opticalflowcontainer_tpu_torch.classical import farneback as tfb
+from opticalflowcontainer_tpu_torch.core.resize import _taps
+from opticalflowcontainer_tpu_torch.ops import farneback_prep as k5
 from opticalflowcontainer_tpu_torch.ops import farneback_update as k1
 from opticalflowcontainer_tpu_torch.ops import solve2x2 as k2
 
@@ -224,3 +231,120 @@ def test_blur_solve_wrapper_checks(rng):
     before = k2.blur_solve.launches
     k2.blur_solve(M, 5)
     assert k2.blur_solve.launches == before
+
+
+# ---------------------------------------------------------------- K5
+
+def _level_args(H, W, k, pyr=0.5):
+    """Level k's size and Gaussian taps, as ``_level_planes`` makes them."""
+    return tfb._level_size(H, W, pyr**k), tfb._level_taps(k, pyr)
+
+
+def test_prep_wrapper_rejects_what_the_kernel_does_not_take(rng):
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 40, 48)).astype(np.float32))
+    size, blur = _level_args(40, 48, 1)
+    with pytest.raises(TypeError, match="float32"):
+        k5.farneback_prep(img.double(), size, blur, 5, 1.1)
+    with pytest.raises(ValueError, match=r"\[N, H, W\]"):
+        k5.farneback_prep(img[0], size, blur, 5, 1.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.farneback_prep(img.transpose(1, 2), size, blur, 5, 1.1)
+    with pytest.raises(ValueError, match="downscale"):
+        k5.farneback_prep(img, (41, 48), blur, 5, 1.1)
+    with pytest.raises(ValueError, match="odd"):
+        k5.farneback_prep(img, size, blur[:-1], 5, 1.1)
+
+
+def test_prep_cpu_path_counts_no_launch(rng):
+    """On the CPU the wrapper runs the plain version, the very operations of
+    ``_level_planes``, and counts no launch."""
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 40, 48)).astype(np.float32))
+    before = k5.farneback_prep.launches
+    for k in (0, 1):
+        size, blur = _level_args(40, 48, k)
+        got = k5.farneback_prep(img, size, blur, 5, 1.1)
+        assert torch.equal(got, tfb._level_planes(img, 40, 48, k, 0.5, 5, 1.1))
+    assert k5.farneback_prep.launches == before
+
+
+@pytest.mark.parametrize("H,W", [(2, 2), (45, 70), (481, 641), (720, 1280), (1080, 1920),
+                                 (97, 330), (33, 2000)])
+@pytest.mark.parametrize("pyr", [0.5, 0.63, 0.8])
+def test_prep_spans_bound_what_a_tile_reads(H, W, pyr):
+    """The shared memory the wrapper sizes holds what each tile's blur reads:
+    for every tile, the padded rows (columns) from the first slot's to the
+    last slot's plus the blur's 2p + 1 taps, through the resize's real tap
+    tables, never exceed ``span``; and a strip holds an even number of row
+    slots."""
+    dev = torch.device("cpu")
+    for k in range(tfb._num_levels(H, W, 5, pyr) + 1):
+        (lh, lw), blur = _level_args(H, W, k, pyr)
+        p = len(blur) // 2
+        for n in (*k5.UNROLLED_POLY_N, 1, k5.MAX_POLY_N):
+            for tile in k5.TILES:
+                cfg = k5.launch_config(H, W, lh, lw, p, n, tile)
+                assert cfg["strip_rows"] % 2 == 0 and cfg["strip_rows"] >= 2
+                for src, dst, key in ((H, lh, "span_h"), (W, lw, "span_w")):
+                    e = np.arange(tile + 2 * n)
+                    lo, hi, _ = (t.numpy() for t in _taps(src, dst, dev))
+                    for t0 in range(0, dst, tile):
+                        lv = np.clip(t0 - n + e, 0, dst - 1)
+                        first, last = (lv[0], lv[-1]) if src == dst else (lo[lv[0]], hi[lv[-1]])
+                        assert last - first + 2 * p + 1 <= cfg[key], (k, n, tile, key)
+
+
+@pytest.mark.parametrize("frames,size,p,tile", [
+    (7, (720, 1280), 1, 32),    # the 720p clip's finest level: 6,440 blocks
+    (7, (180, 320), 4, 32),     # its k = 2: 420 blocks, a 9-tap blur
+    (7, (90, 160), 9, 16),      # its k = 3: the 19-tap blur
+    (14, (135, 240), 9, 16),    # the 1080p clip's coarsest: 560 blocks, wide blur
+    (1, (480, 640), 1, 32),     # a stream frame's finest level: 300 blocks
+    (1, (240, 320), 1, 16),     # its k = 1: 80 blocks
+    (2, (540, 960), 1, 32),     # the 2x1080p batch's k = 1: 1,020 blocks
+    (2, (120, 160), 1, 16),     # a small pair's level: 40 blocks
+])
+def test_prep_choose_tile(frames, size, p, tile):
+    """16 for a wide blur (p >= 5) or a grid of 32-tiles under two blocks
+    an SM, else 32 (the rule fitted to the H100's times of both tiles)."""
+    assert k5.choose_tile(frames, *size, p) == tile
+
+
+def test_prep_smem_fits_without_the_card_limit_at_cv2_settings():
+    """At cv2's settings (pyr_scale 0.5, poly_n 5 and 7) every level of
+    frames up to 4K needs under 64 KB a block: several blocks an SM."""
+    for H, W in ((480, 640), (720, 1280), (1080, 1920), (2160, 3840)):
+        for k in range(tfb._num_levels(H, W, 3, 0.5) + 1):
+            (lh, lw), blur = _level_args(H, W, k)
+            for n in k5.UNROLLED_POLY_N:
+                for tile in k5.TILES:
+                    cfg = k5.launch_config(H, W, lh, lw, len(blur) // 2, n, tile)
+                    assert cfg["smem"] < 64 * 1024, (H, W, k, n, tile, cfg)
+
+
+@pytest.mark.parametrize("pyr", [0.5, 0.8])
+def test_prep_smem_fits_the_card_up_to_the_largest_poly_n(pyr):
+    """Every poly_n the kernel takes, up to ``MAX_POLY_N``, fits a block of
+    either tile in under 100 KB at every level of frames up to 4K, well
+    inside the H100's 227 KB: the wrapper's only refusal on the card is
+    the cap itself."""
+    for H, W in ((480, 640), (720, 1280), (1080, 1920), (2160, 3840)):
+        for k in range(tfb._num_levels(H, W, 5, pyr) + 1):
+            (lh, lw), blur = _level_args(H, W, k, pyr)
+            for n in range(1, k5.MAX_POLY_N + 1):
+                for tile in k5.TILES:
+                    cfg = k5.launch_config(H, W, lh, lw, len(blur) // 2, n, tile)
+                    assert cfg["smem"] < 100 * 1024, (H, W, k, n, tile, cfg)
+
+
+@pytest.mark.parametrize("poly_n", [1, 3, 9])
+def test_prep_cpu_path_takes_any_poly_n(poly_n, rng):
+    """The plain version, which the CPU runs, is the same operations for
+    any poly_n: ``_level_planes`` through the wrapper equals them and
+    counts no launch."""
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 40, 48)).astype(np.float32))
+    before = k5.farneback_prep.launches
+    size, blur = _level_args(40, 48, 1)
+    want = k5.farneback_prep_plain(img, size, blur, poly_n, 0.3 * poly_n + 0.5)
+    got = tfb._level_planes(img, 40, 48, 1, 0.5, poly_n, 0.3 * poly_n + 0.5)
+    assert torch.equal(got, want)
+    assert k5.farneback_prep.launches == before
