@@ -2179,7 +2179,8 @@ def raft_split(torch, fn) -> dict | None:
 def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
                n=201, seed=17) -> None:
     """Phase 17 (RAFT-small) or 18 (RAFT, ``large``) at 640x480 on seeded
-    weights: estimate at iters=12 launches none of K1-K5; card vs CPU with
+    weights: estimate at iters=12 launches none of K1-K5 and counts iters
+    calls of ``lookup_packed`` (``.calls``); card vs CPU with
     fp32 convolutions at 192x128; the served flow (the model holds its
     convolutions in fp32) against fp32, and what TF32 convolutions would
     give; final_only against the stacked flows; B=1 latency over 50 calls,
@@ -2188,6 +2189,7 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
     from unittest import mock
 
     from opticalflowcontainer_tpu_torch.models import raft
+    from opticalflowcontainer_tpu_torch.ops import allpairs
     from opticalflowcontainer_tpu_torch.runtime.fused import FusedModelStream
 
     cls, label = (raft.RAFT, "RAFT") if large else (raft.RAFTSmall, "RAFT-small")
@@ -2198,9 +2200,13 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
     est(model, i1, i2)  # warm-up: library load, cuDNN heuristics
     torch.cuda.synchronize()
     reset_counts()
+    lookups = allpairs.lookup_packed.calls
     flow = est(model, i1, i2)
     torch.cuda.synchronize()
     assert_no_kernel_launches(f"{label} estimate")
+    lookups = allpairs.lookup_packed.calls - lookups
+    print(f"  {label} estimate: lookup_packed.calls {lookups} (expected iters={iters})")
+    require(lookups == iters, f"{label} looks the volume up once an update")
     require(tuple(flow.shape) == (1, H, W, 2), f"flow shape {tuple(flow.shape)}")
     require(bool(torch.isfinite(flow).all()), "flow is finite")
     rms = float(flow.square().mean().sqrt())

@@ -22,6 +22,16 @@ The span names, each under the prefix ``ofc.``:
   the flow resized back and rescaled;
 - :data:`PWCNET_EXTRACTOR`, :data:`PWCNET_DECODER` (one name a level, 6 to
   2), :data:`PWCNET_REFINER` -- PWC-Net's stages inside its forward;
+- :data:`RAFT_ENCODE` -- RAFT's feature encoder on both frames and its
+  context encoder, up to the hidden state and the context;
+- :data:`RAFT_VOLUME` -- RAFT's all-pairs product, its pyramid and the
+  packing of the levels side by side;
+- :data:`RAFT_LOOKUP` -- one windowed lookup of the packed pyramid
+  (``ops/allpairs.py`` ``lookup_packed``), one an update;
+- :data:`RAFT_UPDATE` -- one recurrent update after its lookup: the motion
+  encoder, the GRU and the flow head;
+- :data:`RAFT_UPSAMPLE` -- the flow upsampled 8x (RAFT's convex
+  combination, RAFT-small's bilinear resize);
 - :data:`STREAM_STEP` -- a fused stream's ``step``, the whole method: the
   frame's enqueue, up to the unsynced du;
 - :data:`STREAM_UPLOAD` -- the frame (and mask) to the device;
@@ -45,6 +55,11 @@ MODEL_RESIZE_OUT = "ofc.model.resize_out"
 PWCNET_EXTRACTOR = "ofc.pwcnet.extractor"
 PWCNET_DECODER = {level: f"ofc.pwcnet.decoder{level}" for level in (6, 5, 4, 3, 2)}
 PWCNET_REFINER = "ofc.pwcnet.refiner"
+RAFT_ENCODE = "ofc.raft.encode"
+RAFT_VOLUME = "ofc.raft.volume"
+RAFT_LOOKUP = "ofc.raft.lookup"
+RAFT_UPDATE = "ofc.raft.update"
+RAFT_UPSAMPLE = "ofc.raft.upsample"
 STREAM_STEP = "ofc.stream.step"
 STREAM_UPLOAD = "ofc.stream.upload"
 STREAM_AGGREGATE = "ofc.stream.aggregate"

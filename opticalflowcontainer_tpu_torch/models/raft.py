@@ -23,6 +23,9 @@ stay within their bars with TF32.  A model cast to bfloat16
 then only chooses their algorithms by timing.  Module names follow
 the reference's flax names, which ``models/convert.py`` relies on.
 :func:`estimate` implements the resize-to-a-multiple-of-8 contract.
+The forward records the spans ``ofc.raft.encode``, ``ofc.raft.volume``,
+``ofc.raft.update`` (one an iteration; ``ofc.raft.lookup`` is the
+lookup's own) and ``ofc.raft.upsample`` (``core/spans.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import spans
 from ..core.resize import resize_bilinear
 from ..ops.allpairs import all_pairs_correlation, corr_pyramid, lookup_packed, pack_pyramid
 from .common import AxisConv, Conv, estimate_resized, fp32_convolutions, upsample_convex
@@ -209,12 +213,13 @@ class _RAFTBase(nn.Module):
             self.mask2 = Conv(256, 64 * 9, kernel=1, padding=0)
 
     def _upsample(self, flow, h):
-        if self.small:
-            # half-pixel bilinear x8, displacements x8
-            H, W = flow.shape[-2:]
-            return resize_bilinear(flow, (8 * H, 8 * W)) * 8.0
-        # the learned convex combination, its mask scaled by 0.25
-        return upsample_convex(flow, self.mask2(F.relu(self.mask1(h))) * 0.25)
+        with spans.annotate(spans.RAFT_UPSAMPLE):
+            if self.small:
+                # half-pixel bilinear x8, displacements x8
+                H, W = flow.shape[-2:]
+                return resize_bilinear(flow, (8 * H, 8 * W)) * 8.0
+            # the learned convex combination, its mask scaled by 0.25
+            return upsample_convex(flow, self.mask2(F.relu(self.mask1(h))) * 0.25)
 
     def forward(self, img1, img2, iters: int | None = None,
                 final_only: bool = False):
@@ -225,16 +230,18 @@ class _RAFTBase(nn.Module):
         # an explicit iters=0 stays 0
         iters = self.iters if iters is None else iters
         B = img1.shape[0]
-        img1 = img1 * 2.0 - 1.0
-        img2 = img2 * 2.0 - 1.0
-        # both frames through the feature encoder as one batch
-        f12 = self.fnet(torch.cat([img1, img2], 0))
-        f1, f2 = f12[:B], f12[B:]
-        c = self.cnet(img1)
-        h = torch.tanh(c[:, :self.hidden])
-        ctx = F.relu(c[:, self.hidden:])
-        packed = pack_pyramid(corr_pyramid(all_pairs_correlation(f1, f2),
-                                           self.corr_levels))
+        with spans.annotate(spans.RAFT_ENCODE):
+            img1 = img1 * 2.0 - 1.0
+            img2 = img2 * 2.0 - 1.0
+            # both frames through the feature encoder as one batch
+            f12 = self.fnet(torch.cat([img1, img2], 0))
+            f1, f2 = f12[:B], f12[B:]
+            c = self.cnet(img1)
+            h = torch.tanh(c[:, :self.hidden])
+            ctx = F.relu(c[:, self.hidden:])
+        with spans.annotate(spans.RAFT_VOLUME):
+            packed = pack_pyramid(corr_pyramid(all_pairs_correlation(f1, f2),
+                                               self.corr_levels))
         flow = torch.zeros((B, 2) + f1.shape[-2:], dtype=torch.float32,
                            device=f1.device)
         if final_only and iters < 1:
@@ -243,10 +250,11 @@ class _RAFTBase(nn.Module):
         flows = []
         for it in range(iters):
             corr = lookup_packed(packed, flow, self.corr_radius).to(f1.dtype)
-            m = self.motion(flow, corr)
-            # [context, motion]: the reference's (and torchvision's) order
-            h = self.gru(h, torch.cat([ctx, m], 1))
-            flow = flow + self.head(h).float()
+            with spans.annotate(spans.RAFT_UPDATE):
+                m = self.motion(flow, corr)
+                # [context, motion]: the reference's (and torchvision's) order
+                h = self.gru(h, torch.cat([ctx, m], 1))
+                flow = flow + self.head(h).float()
             if not final_only or it == iters - 1:
                 flows.append(self._upsample(flow, h))
         if final_only:

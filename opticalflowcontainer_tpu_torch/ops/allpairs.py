@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.device import cached_tensors
 
 
@@ -102,7 +103,19 @@ def _lookup_tables(radius: int, sizes: tuple, device: torch.device):
 def lookup_packed(packed: PackedPyramid, flow: torch.Tensor,
                   radius: int) -> torch.Tensor:
     """:func:`corr_lookup` on a :class:`PackedPyramid`: one gather over
-    every level, offset and tap."""
+    every level, offset and tap, under the span ``ofc.raft.lookup``; each
+    call counts one (``lookup_packed.calls``, RAFT's ``iters`` an
+    estimate)."""
+    lookup_packed.calls += 1
+    with spans.annotate(spans.RAFT_LOOKUP):
+        return _lookup_packed(packed, flow, radius)
+
+
+lookup_packed.calls = 0
+
+
+def _lookup_packed(packed: PackedPyramid, flow: torch.Tensor,
+                   radius: int) -> torch.Tensor:
     B, _, H, W = flow.shape
     flat = packed.flat
     scale, oy, ox, col, hl, wl, tap_dy, tap_dx = _lookup_tables(

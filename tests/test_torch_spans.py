@@ -1,7 +1,8 @@
 """The port's ``ofc.*`` spans (``core/spans.py``) on the CPU: the shared
 no-op when no profiler runs, and under ``torch.profiler`` the spans of a
 Farneback call, of a fused stream's step and wait, of the model's estimate
-and PWC-Net's stages, and of a constant table built on a cache miss."""
+and PWC-Net's stages, of RAFT's stages (and the lookup's call counter), and
+of a constant table built on a cache miss."""
 import numpy as np
 import pytest
 import torch
@@ -10,6 +11,8 @@ from torch.profiler import ProfilerActivity, profile
 from opticalflowcontainer_tpu_torch.classical import farneback as tfb
 from opticalflowcontainer_tpu_torch.core import spans
 from opticalflowcontainer_tpu_torch.models import pwcnet as tpwc
+from opticalflowcontainer_tpu_torch.models import raft as traft
+from opticalflowcontainer_tpu_torch.ops import allpairs
 from opticalflowcontainer_tpu_torch.runtime import fused, tracing
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -61,7 +64,7 @@ def test_annotate_records_a_span_under_the_profiler():
 def test_span_names_are_distinct_and_prefixed():
     names = [v for k, v in vars(spans).items() if k.isupper() and isinstance(v, str)]
     names += list(spans.PWCNET_DECODER.values())
-    assert len(names) == len(set(names)) == 18
+    assert len(names) == len(set(names)) == 23
     assert all(n.startswith("ofc.") for n in names)
 
 
@@ -145,6 +148,52 @@ def _backend_call(make):
         backend = make()
         return lambda: backend(frames[0], frames[1], 1 / 30)
     return call
+
+
+RAFT_STAGES = {"large": traft.RAFT, "small": traft.RAFTSmall}
+
+
+def _raft_call(kind, iters):
+    torch.manual_seed(0)
+    model = RAFT_STAGES[kind]().eval()
+    frames = torch.from_numpy(_frames(2, 64, 64, channels=3)).float() / 255
+    return lambda: traft.estimate(model, frames[:1], frames[1:], iters=iters)
+
+
+@pytest.mark.parametrize("kind,iters", [("large", 3), ("small", 2)])
+def test_raft_records_its_stages_and_counts_its_lookups(kind, iters):
+    run = _raft_call(kind, iters)
+    run()
+    calls = allpairs.lookup_packed.calls
+    events = _profiled(run)
+    assert allpairs.lookup_packed.calls == calls + iters
+    names = _names(events)
+    stages = [n for n in names if n.startswith("ofc.raft.")]
+    assert stages == ([spans.RAFT_ENCODE, spans.RAFT_VOLUME]
+                      + [spans.RAFT_LOOKUP, spans.RAFT_UPDATE] * iters
+                      + [spans.RAFT_UPSAMPLE])
+    forward = events[names.index(spans.MODEL_FORWARD)]
+    assert all(_inside(e, forward) for e in events if e[0] in stages)
+    # one span at a time: no stage opens inside another
+    raft = [e for e in events if e[0] in stages]
+    assert all(a[2] <= b[1] for a, b in zip(raft, raft[1:]))
+
+
+def test_raft_records_no_span_with_no_profiler(monkeypatch):
+    made = []
+    real = torch._C._profiler._RecordFunctionFast
+
+    def counted(name):
+        made.append(name)
+        return real(name)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", counted)
+    run = _raft_call("large", 2)
+    calls = allpairs.lookup_packed.calls
+    run()
+    assert made == []
+    assert allpairs.lookup_packed.calls == calls + 2
+    _profiled(run)
+    assert made.count(spans.RAFT_LOOKUP) == 2  # the stand-in is the one used
 
 
 # kind -> (frame size, the call made of the frames)
