@@ -28,6 +28,13 @@ seconds:
    known subpixel translation: EPE against it, the kernel launch counts of
    one call (K1, K2 and K5), ms per call and fields/s; and the clip on the
    card vs the CPU on a small input;
+4b. the Farneback clips' frame upload (the 1080p clip's 29.03 MB, the
+   720p clip's 6.45 MB): core.device.upload's staged copy equals the
+   pageable one bit for bit.  ``--upload`` runs this phase alone, after
+   phase 0, and times it: pageable, staged, the DMA from pinned memory
+   alone (the ceiling), the host copies into pinned memory alone, in ms
+   and GB/s by CUDA events and the host clock, then the helper threads of
+   the host copy swept;
 5. the stream at 640x480: FusedFarnebackStream and the flow-node backend on
    uint8 BGR frames with a known shift; VelocityEstimator m/s; step_many ==
    step bit for bit; per-frame latency (p50, p99) over a 400-frame window;
@@ -634,6 +641,124 @@ def k5_phase(torch, dev, seed=4) -> dict:
             "graph_ms": head["graph_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shapes": shapes}
+
+
+# the Farneback cells' clips, the helper counts swept, and the device work
+# between two uploads (the 1080p clip's ~9 ms of kernels)
+UPLOAD_CLIPS = (("1080p clip", (7, 2, 1080, 1920)), ("720p clip", (7, 720, 1280)))
+UPLOAD_HELPERS_SWEPT = (0, 1, 3, 5, 7)
+UPLOAD_SLEEP_CYCLES = 18_000_000
+
+
+def upload_phase(torch, dev, sweep=False, reps=100, pool=64, seed=24) -> dict:
+    """The Farneback clips' uint8 frames to the card.  Always: the staged
+    upload (``core.device.upload``) equals the pageable one bit for bit,
+    from a contiguous and a strided array.  With ``sweep`` (``--upload``),
+    each route called as the clip cells call it: a T-frame slice of a
+    ``pool``-frame host pool at a random start (cold in the CPU's caches),
+    then ~9 ms of device work (a device sleep) and a sync.  Routes:
+    pageable (``torch.from_numpy(x).to(dev)``, the route before the
+    staging), staged, the DMA from pinned memory alone (the ceiling), the
+    native host copy into pinned memory alone, and PyTorch's threaded
+    ``copy_`` into pinned memory (one parallel region over every intra-op
+    thread) for comparison.  For each the mean, median, p95 and max over
+    ``reps`` calls of the ms until the call returned and of the ms until
+    the copy ended (CUDA events; the host clock for the host copies), and
+    GB/s at the mean.  Then the sweep that fixed UPLOAD_HELPERS: the host
+    copy and the staged upload with each of UPLOAD_HELPERS_SWEPT."""
+    from opticalflowcontainer_tpu_torch.core import device as dv
+
+    rng = np.random.default_rng(seed)
+    for label, shape in UPLOAD_CLIPS:
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        wide = np.empty(shape[:-1] + (2 * shape[-1],), np.uint8)
+        wide[..., ::2] = x
+        for src in (x, wide[..., ::2]):
+            require(torch.equal(dv.upload(src, dev), torch.from_numpy(x).to(dev)),
+                    f"{label}: the staged upload equals the pageable one bit for bit")
+    print(f"both clips: the staged upload equals the pageable one bit for bit "
+          f"(contiguous and strided)")
+    if not sweep:
+        return {}
+
+    def timed(fn, frames, T) -> dict:
+        ret, done = [], []
+        for k in range(reps + 3):
+            s = int(rng.integers(0, len(frames) - T + 1))
+            x = frames[s:s + T]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn(x)
+            t1 = time.perf_counter()
+            end.record()
+            torch.cuda._sleep(UPLOAD_SLEEP_CYCLES)
+            torch.cuda.synchronize()
+            if k >= 3:
+                ret.append((t1 - t0) * 1e3)
+                done.append(start.elapsed_time(end))
+        return {"return_ms": ret, "done_ms": done}
+
+    def summary(r: dict, nbytes: int, key: str) -> dict:
+        out = {}
+        for name, v in r.items():
+            out[name] = {"mean": float(np.mean(v)), "median": float(np.median(v)),
+                         "p95": float(np.percentile(v, 95)), "max": float(np.max(v))}
+        out["GB_per_s"] = nbytes / out[key]["mean"] / 1e6
+        return out
+
+    def show(label: str, r: dict, key: str) -> None:
+        qs = ("mean", "median", "p95", "max")
+        ms = " / ".join(f"{r[key][q]:.3f}" for q in qs)
+        back = " / ".join(f"{r['return_ms'][q]:.3f}" for q in qs)
+        print(f"  {label}: done {ms} ms (mean / median / p95 / max), returns "
+              f"{back} ms, {r['GB_per_s']:.2f} GB/s")
+
+    print(f"{card_line()}; torch threads {torch.get_num_threads()}, "
+          f"{dv.UPLOAD_HELPERS} helpers, {reps} calls a route")
+    out = {}
+    for label, shape in UPLOAD_CLIPS:
+        frames = rng.integers(0, 256, (pool,) + shape[1:], dtype=np.uint8)
+        T = shape[0]
+        x = frames[:T]
+        nbytes = x.nbytes
+        pinned = torch.from_numpy(x).pin_memory()
+        dst = torch.empty(shape, dtype=torch.uint8, device=dev)
+        host_buf = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+
+        def gather(x, helpers=dv.UPLOAD_HELPERS):
+            dv.host_gather(host_buf, torch.from_numpy(x), helpers)
+
+        def upload_with(helpers):
+            def fn(x):
+                staged = torch.empty(x.shape, dtype=torch.uint8, pin_memory=True)
+                dv.host_gather(staged, torch.from_numpy(x), helpers)
+                return staged.to(dev, non_blocking=True)
+            return fn
+
+        routes = {"pageable": lambda x: torch.from_numpy(x).to(dev),
+                  "staged": lambda x: dv.upload(x, dev),
+                  "pinned_dma": lambda x: dst.copy_(pinned, non_blocking=True),
+                  "host_gather": gather,
+                  "torch_copy_to_pinned": lambda x: host_buf.copy_(torch.from_numpy(x))}
+        out[label] = {"bytes": nbytes}
+        for name, fn in routes.items():
+            r = timed(fn, frames, T)
+            key = "return_ms" if name in ("host_gather", "torch_copy_to_pinned") else "done_ms"
+            out[label][name] = summary(r, nbytes, key)
+            show(f"{label} {nbytes} B {name:>20}", out[label][name], key)
+        for h in UPLOAD_HELPERS_SWEPT:
+            r = summary(timed(lambda x: gather(x, h), frames, T), nbytes, "return_ms")
+            out[label][f"host_gather_{h}"] = r
+            show(f"{label} host copy, {h} helpers", r, "return_ms")
+            r = summary(timed(upload_with(h), frames, T), nbytes, "done_ms")
+            out[label][f"staged_{h}"] = r
+            show(f"{label} staged, {h} helpers", r, "done_ms")
+        del pinned, host_buf, routes
+    print(json.dumps({"upload": out}))
+    return out
 
 
 def clip_phase(torch, dev, trace_dir, H=720, W=1280, T=7, reps=5) -> dict:
@@ -4101,6 +4226,10 @@ def main() -> int:
                     help="write the profiled clip call, stream steps, model "
                          "estimates and model stream steps as Chrome traces "
                          "into DIR")
+    ap.add_argument("--upload", action="store_true",
+                    help="instead of the phases after the device, run phase "
+                         "4b alone, timed: the frame upload's routes and "
+                         "the host copy's helper-count sweep")
     ap.add_argument("--variants", action="store_true",
                     help="instead of the phases after the build, time the "
                          "launch choices of K3, K2 and K4 apart and print "
@@ -4120,6 +4249,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     with phase("0 device"):
         device = device_phase(torch)
+    if args.upload:
+        with phase("4b frame upload"):
+            upload_phase(torch, dev, sweep=True)
+        return 0
     with phase("1 build"):
         build_phase()
     if args.variants:
@@ -4135,6 +4268,8 @@ def main() -> int:
         k5 = k5_phase(torch, dev)
     with phase("4 720p T=7 clip (main path)"):
         by_path = {"farneback_clip": clip_phase(torch, dev, args.trace)}
+    with phase("4b frame upload"):
+        upload_phase(torch, dev)
     with phase("5 640x480 stream"):
         stream_phase(torch, dev, args.trace)
     with phase("6 K3 warp_bilinear vs plain"):

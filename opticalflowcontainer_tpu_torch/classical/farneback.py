@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core import spans
-from ..core.device import resolve_device
+from ..core.device import resolve_device, upload
 from ..core.filters import gaussian_kernel_1d
 from ..core.resize import resize_bilinear
 from ..ops.farneback_prep import _poly_planes, farneback_prep
@@ -130,11 +130,10 @@ def _pyramid_flow(planes_at, N: int, H: int, W: int, n_levels: int,
 
 def _frames(x, device: torch.device) -> torch.Tensor:
     """Frames as fp32 on ``device`` (numpy arrays and tensors alike; integer
-    frames are sent as they are and converted on the device)."""
+    frames are sent as they are, host arrays to the card through pinned
+    memory by ``core.device.upload``, and converted on the device)."""
     with spans.annotate(spans.FARNEBACK_UPLOAD):
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        return x.to(device).float()
+        return upload(x, device).float()
 
 
 def _init_uv(flow, batch: tuple, H: int, W: int, device: torch.device):

@@ -4,14 +4,20 @@ The reference routes between a TPU form and a CPU form of each stage by
 probing the JAX backend.  Here the caller names the device: entry points run
 on CUDA unless ``device="cpu"`` is passed, and they raise when no CUDA device
 exists rather than quietly running on the CPU.
+
+:func:`upload` moves host arrays to the card through pinned memory, so the
+copy is a DMA the host does not wait on.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import os
 import shutil
+import threading
 
+import numpy as np
 import torch
 
 from . import spans
@@ -19,6 +25,12 @@ from . import spans
 # streaming multiprocessors of an H100 SXM: the default the kernels' launch
 # configurations assume where no card is asked (the CPU tests)
 H100_SMS = 132
+
+# threads of the pool that help the caller copy a host array into pinned
+# memory (ops/csrc/host_gather.cpp): one core of an H100 machine's host
+# copies ~5 GB/s, the caller and 3 helpers ~16, with 7 ~26 (chip_smoke.py
+# --upload); in the 1080p clip cell 7 helpers beat 3 by 3-9% a run
+UPLOAD_HELPERS = 7
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -106,3 +118,62 @@ def cached_tensors(maxsize: int):
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of CUDA device ``device_index``."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def host_gather(dst: torch.Tensor, src: torch.Tensor,
+                helpers: int = UPLOAD_HELPERS) -> None:
+    """Copy the CPU tensor ``src`` (any strides) into the contiguous CPU
+    tensor ``dst`` of its shape and dtype, in C order, with the caller's
+    thread and up to ``helpers`` threads of the native pool (the GIL is
+    released meanwhile)."""
+    from ..ops._build import load_kernels  # ops imports this module
+
+    if (dst.shape != src.shape or dst.dtype != src.dtype or not dst.is_contiguous()
+            or dst.device.type != "cpu" or src.device.type != "cpu"):
+        raise ValueError(f"host_gather: dst {tuple(dst.shape)} {dst.dtype} on "
+                         f"{dst.device} for src {tuple(src.shape)} {src.dtype} "
+                         f"on {src.device}")
+    n, size = src.dim(), src.element_size()
+    shape = (ctypes.c_int64 * max(n, 1))(*src.shape)
+    strides = (ctypes.c_int64 * max(n, 1))(*(st * size for st in src.stride()))
+    err = load_kernels().ofc_host_gather(dst.data_ptr(), src.data_ptr(), n,
+                                         shape, strides, size, helpers)
+    if err:
+        raise ValueError(f"host_gather: {n} dims over the native copy's limit")
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a numpy array or a tensor) on ``device``, its dtype kept.
+
+    Routed by what ``x`` is: to the CPU as before (a contiguous copy of a
+    numpy array's view); a CUDA tensor as it is (or copied to ``device``);
+    any host array, pinned or not, is gathered by :func:`host_gather` into
+    a pinned block of PyTorch's caching host allocator and sent from there
+    by one asynchronous copy on the current stream, counted in
+    ``upload.staged`` (uploads) and ``upload.staged_bytes``.  It returns
+    once the caller's bytes are in the block, so the caller may overwrite
+    them; nothing here synchronises a stream.  The allocator hands the
+    block out again only after the copy's event has passed."""
+    if device.type != "cuda":
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if any(st < 0 for st in x.strides):  # torch.from_numpy takes none
+            x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x)
+    if x.is_cuda:
+        return x.to(device)
+    staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host_gather(staged, x)
+    out = staged.to(device, non_blocking=True)
+    with _count_lock:
+        upload.staged += 1
+        upload.staged_bytes += x.numel() * x.element_size()
+    return out
+
+
+_count_lock = threading.Lock()
+upload.staged = 0
+upload.staged_bytes = 0

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 All ``csrc/*.cu`` sources, and the host-only ``csrc/*.cpp`` (the junction
-detector and the JPEG/PNG decoders, which nvcc hands to the host
-compiler), go through ONE ``nvcc``
+detector, the JPEG/PNG decoders and the frame upload's host copy, which
+nvcc hands to the host compiler), go through ONE ``nvcc``
 call into a shared library with a plain C interface (each kernel has an
 ``extern "C"`` launcher that returns ``cudaGetLastError()``), loaded with
 ``ctypes``.  Host code is built with ``-ffp-contract=off``: a fused
@@ -68,6 +68,10 @@ _SIGNATURES = {
     "ofc_jpeg_decode": (_I, [_P, ctypes.c_int64, _P, _I, _I]),
     # host code: raw (H rows of a filter byte + W * bpp), out, H, W, bpp
     "ofc_png_unfilter": (_I, [_P, _P, _I, _I, _I]),
+    # host code: dst, src, ndim, shape, strides (bytes), element bytes,
+    # helper threads
+    "ofc_host_gather": (_I, [_P, _P, _I, ctypes.POINTER(ctypes.c_int64),
+                             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, _I]),
 }
 
 

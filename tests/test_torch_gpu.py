@@ -5,11 +5,15 @@ neither JAX nor the JAX package, so it also runs on the card's machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from opticalflowcontainer_tpu_torch.classical import farneback as fb
+from opticalflowcontainer_tpu_torch.core import device as dv
+from opticalflowcontainer_tpu_torch.core import spans
 from opticalflowcontainer_tpu_torch.models import pwcnet
 from opticalflowcontainer_tpu_torch.ops import correlation as k4
 from opticalflowcontainer_tpu_torch.ops import farneback_prep as k5
@@ -1082,3 +1086,143 @@ def test_packaged_pwcnet_on_the_card_matches_the_cpu(cuda):
     d = (fp32.cpu() - want).abs()
     assert float(d.mean()) <= 1e-3 and float(d.max()) <= 5e-2
     assert float((served - fp32).abs().mean()) <= 1e-2
+
+
+# ------------------------------------------------- the frame upload (core.device)
+
+def _clip(seed, shape=(7, 2, 1080, 1920)):
+    """A uint8 clip [T, ..., H, W] in pageable host memory (the 1080p one is
+    29.03 MB): noise that moves a pixel right and down a frame."""
+    T, H, W = shape[0], shape[-2], shape[-1]
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, shape[1:-2] + (H + T, W + T), dtype=np.uint8)
+    return np.stack([base[..., t:t + H, t:t + W] for t in range(T)])
+
+
+def _as_input(kind, clip, cuda):
+    if kind == "numpy":
+        return clip
+    if kind == "numpy_strided":  # the cameras interleaved on the last axis
+        return np.moveaxis(np.ascontiguousarray(np.moveaxis(clip, 1, -1)), -1, 1)
+    t = torch.from_numpy(clip)
+    return {"tensor": t, "pinned": t.pin_memory(), "cuda": t.to(cuda)}[kind]
+
+
+@pytest.mark.parametrize("kind,staged", [("numpy", 1), ("numpy_strided", 1),
+                                         ("tensor", 1), ("pinned", 1), ("cuda", 0)])
+def test_staged_upload_equals_the_pageable_one_at_1080p(kind, staged, cuda):
+    """The 1080p clip's frames and ``farneback_clip``'s flows, bit for bit
+    the pageable upload's (``torch.from_numpy(...).to(cuda)``, the route
+    before the staging); host arrays, pinned ones too, are staged once a
+    clip call, a CUDA tensor never."""
+    clip = _clip(0)
+    x = _as_input(kind, clip, cuda)
+    pageable = torch.from_numpy(clip).to(cuda)
+    frames = fb._frames(x, cuda)
+    want = fb.farneback_clip(pageable, device=cuda)
+    before = (dv.upload.staged, dv.upload.staged_bytes)
+    got = fb.farneback_clip(x, device=cuda)
+    counted = (dv.upload.staged - before[0], dv.upload.staged_bytes - before[1])
+    torch.cuda.synchronize()
+    assert frames.dtype == torch.float32 and torch.equal(frames, pageable.float())
+    assert torch.equal(got, want)
+    assert counted == (staged, staged * clip.nbytes)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "pinned"])
+@pytest.mark.parametrize("shape", [(7, 720, 1280), (7, 2, 1080, 1920)])
+def test_caller_may_overwrite_its_frames_once_the_call_returns(shape, kind, cuda):
+    """A caller with one buffer (a decoder's ring; a numpy array or a pinned
+    tensor) fills it, calls, and fills it again at once, while the card
+    still sleeps ahead of the DMAs: every call's flow is the flow of the
+    frames it was given (each call's pinned block is still queued when the
+    next call asks for one)."""
+    clips = [_clip(seed, shape) for seed in (1, 2, 3)]
+    want = [fb.farneback_clip(torch.from_numpy(c).to(cuda), device=cuda)
+            for c in clips]
+    buf = np.empty_like(clips[0])
+    if kind == "pinned":
+        buf = torch.from_numpy(buf).pin_memory()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream ahead of the copies
+    got = []
+    for c in clips:
+        buf[...] = c if kind == "numpy" else torch.from_numpy(c)
+        got.append(fb.farneback_clip(buf, device=cuda))
+    buf[...] = 0
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("helpers", [0, 3, 7])
+def test_the_built_host_gather_reads_any_strides(helpers, cuda):
+    """``ofc_host_gather`` as nvcc's build holds it: the 1080p clip's two
+    cameras interleaved on the last axis, and a crop of a 720p clip, into
+    pinned memory, by the caller alone or with helpers, equal the arrays'
+    C-order bytes."""
+    rng = np.random.default_rng(helpers)
+    wide = np.moveaxis(rng.integers(0, 256, (7, 1080, 1920, 2), dtype=np.uint8), -1, 1)
+    crop = rng.integers(0, 256, (7, 720, 1280), dtype=np.uint8)[:, 7:700, 3:1201]
+    for x in (wide, crop):
+        out = torch.empty(x.shape, dtype=torch.uint8, pin_memory=True)
+        dv.host_gather(out, torch.from_numpy(x), helpers=helpers)
+        np.testing.assert_array_equal(out.numpy(), x)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_two_threads_on_two_streams_upload_their_own_frames(strided, cuda):
+    """Two threads, each on its own stream with its own buffer (strided:
+    the frames' rows every other one of a wider array), upload four
+    [7, 1080, 1920] clips at once through ``_frames``, sharing the helper
+    pool and the pinned blocks' cache.  Each gets its own frames, and all
+    eight uploads are counted."""
+    clips = {k: [_clip(10 * k + i, (7, 1080, 1920)) for i in range(4)] for k in (0, 1)}
+    got = {0: [], 1: []}
+    errors = []
+    before = dv.upload.staged
+
+    def work(k):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            wide = np.empty((7, 2 * 1080, 1920), np.uint8)
+            buf = wide[:, ::2] if strided else wide[:, :1080]
+            with torch.cuda.stream(stream):
+                for c in clips[k]:
+                    buf[...] = c
+                    got[k].append(fb._frames(buf, cuda))
+                wide[...] = 0
+            stream.synchronize()
+        except BaseException as e:  # handed to the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert dv.upload.staged - before == 8
+    for k in (0, 1):
+        assert len(got[k]) == 4
+        for frames, c in zip(got[k], clips[k]):
+            assert torch.equal(frames.cpu(), torch.from_numpy(c).float())
+
+
+def test_the_upload_never_synchronizes_a_stream(cuda):
+    """Under the profiler, the 1080p clip call's ``ofc.farneback.upload``
+    span holds one host-to-device copy and no stream or device
+    synchronization."""
+    from torch.profiler import ProfilerActivity, profile
+
+    clip = _clip(4)
+    fb.farneback_clip(clip, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fb.farneback_clip(clip, device=cuda)
+        torch.cuda.synchronize()
+    events = prof.events()
+    upload, = [e.time_range for e in events if e.name == spans.FARNEBACK_UPLOAD]
+    inside = [e.name for e in events
+              if upload.start <= e.time_range.start <= upload.end]
+    assert not {"cudaStreamSynchronize", "cudaDeviceSynchronize"} & set(inside)
+    assert inside.count("cudaMemcpyAsync") == 1
