@@ -75,7 +75,6 @@ seconds:
    bringup_flow with depth and camera_info;
 13. MultiStreamFlow: two 1080p gray streams at 60 fps for 6 s;
 14. the LFN3 JunctionMaskFlowNode at 640x480 in topic mode;
-15. measure_stream_latency at 640x480 for Farneback and LFN3;
 16. Lucas-Kanade at 640x480 with cv2's defaults: up to 500 corners of
    good_features_to_track tracked on a pair with a known subpixel shift
    (the interior error, the card against the CPU, ms per call and its
@@ -150,13 +149,6 @@ seconds:
    (gloo: NCCL refuses two ranks on a device) run the three inference
    legs on meshes (2, 1) and (1, 2), each against the one-rank results;
    the sharded and unsharded ms and the collectives' share;
-26. the stage roofline: tools/stage_roofline.py at its defaults (720p, T=5,
-   64 calls a timed graph): the ceilings measured on
-   the card (HBM reads at 128-1024 MB, read+write at 256 MB and inside the
-   L2, matmuls in fp32/TF32/bf16, an FMA chain) below the data sheet, every
-   leg finite, and no stage's GB/s above 105% of the measured HBM
-   read+write ceiling (a reading over it is a wrong byte count), or of the
-   L2's for a stage whose whole traffic in a call fits in the L2;
 27. compressed frames and video at 640x480, on the committed fixtures of
    tests/data/ (tests/_torch_codec_fixtures.py: 16 SyntheticCamera frames
    at 0.05 m/s as a Motion-JPEG AVI, a PNG of all five row filters, a
@@ -192,6 +184,10 @@ seconds:
    equal the npz they resumed from bit for bit), --distill raft_large
    (finite losses) and pwc_distill_extractor with its LFN3 teacher (finite
    losses, the extractor npz written and grafted back bit for bit).
+
+Phases 15 and 26 are absent: the benchmark, portbench/, measures the
+stream's latency and the stages' rooflines; the other phases keep their
+numbers.
 
 Phases 8-11, 14, 17-21, 23 (its training runs start from the seeded
 init, as train_flow does), 24 (LFN3) and 25 seed their weights on purpose:
@@ -2081,29 +2077,6 @@ def junction_phase(torch, dev, trace_dir, H=480, W=640, n=100, dx=1.5,
     return {"junction_lfn3": counts}
 
 
-def latency_phase(torch, dev, H=480, W=640, n=401, fps=30.0, seed=11) -> None:
-    """measure_stream_latency at 640x480, 400 frames paced at 30 fps, for
-    the Farneback stream (cv2's defaults, as phase 5) and for a
-    FusedModelStream over LFN3 (as phase 11); and measure_device_stream_ms."""
-    from opticalflowcontainer_tpu_torch.models.liteflownet3 import LiteFlowNet3, estimate
-    from opticalflowcontainer_tpu_torch.runtime.fused import (
-        FusedModelStream, measure_device_stream_ms, measure_stream_latency)
-
-    model = seeded_liteflownet(torch, LiteFlowNet3, seed, dev)
-    for label, stream in (("Farneback", None),
-                          ("LFN3", FusedModelStream(model, estimate, device=dev))):
-        r = measure_stream_latency(H, W, fps=fps, n_frames=n, stream=stream, device=dev)
-        print(f"measure_stream_latency {label} {W}x{H}, {r['n_measured']} frames at "
-              f"{fps:g} fps: p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
-              f"mean {r['mean_ms']:.3f} ms, sustained {r['sustained_fps']:.2f} fps, "
-              f"held {r['held_rate']} (device {r['device']})")
-        require(r["n_measured"] == n - 1 and np.isfinite(r["p99_ms"]),
-                "every frame measured")
-    d_ms = measure_device_stream_ms(H, W, n_steps=30, device=dev)
-    print(f"measure_device_stream_ms Farneback {W}x{H}: {d_ms:.3f} ms a frame "
-          f"(30 chained steps between CUDA events, host dispatch gaps included)")
-
-
 def assert_no_kernel_launches(what: str) -> None:
     """The paths of phases 16-18 reach none of K1-K4 (the reference's LK and
     RAFT reach no Pallas kernel): a stray route through one shows here."""
@@ -3714,67 +3687,6 @@ def scaleout_phase(torch, dev) -> dict:
     return by_path
 
 
-# ------------------------------------------- phase 26: the stage roofline
-
-def roofline_phase(torch, trace_dir) -> None:
-    """Phase 26: tools.stage_roofline at its defaults (720p, T=5, 64 calls
-    a graph: a few seconds, so nothing is cut); every leg finite, the
-    measured ceilings below the data sheet, no stage above 105% of the
-    measured HBM read+write ceiling, unless all it moves in a call (each
-    array it reads and writes, once) fits in the L2: replayed, such a
-    stage is served from the L2 and is held to the L2's ceiling."""
-    from opticalflowcontainer_tpu_torch.tools import stage_roofline as sr
-
-    out_dir = trace_dir or tempfile.mkdtemp()
-    path = os.path.join(out_dir, "stage_roofline.json")
-    if os.path.exists(path):
-        os.remove(path)
-    import io
-
-    with contextlib.redirect_stdout(io.StringIO()):
-        sr.main(["--out", path])
-    with open(path) as f:
-        legs = [json.loads(line) for line in f]
-    by = {leg["leg"]: leg for leg in legs}
-    print(f"stage roofline: {len(legs)} legs ({by['device']['card']}, "
-          f"graph replay, {by['device']['reps']} calls a graph)")
-    numbers = [v for leg in legs for k, v in leg.items()
-               if isinstance(v, float)]
-    require(all(np.isfinite(numbers)), "every leg finite")
-    ds = sr.DATASHEET
-    ceil = {k: by[f"ceiling_{k}"] for k in ("read_128mb", "read_512mb",
-                                          "read_1024mb", "rw_256mb",
-                                          "rw_l2_16mb", "matmul_fp32",
-                                          "matmul_tf32", "matmul_bf16",
-                                          "fma_fp32")}
-    for k, leg in ceil.items():
-        rate = leg.get("gbps", leg.get("tflops"))
-        unit = "GB/s" if "gbps" in leg else "TFLOP/s"
-        print(f"  ceiling {k}: {rate:.1f} {unit} ({leg['ms_per_rep']:.4f} ms a rep)")
-    for k in ("read_128mb", "read_512mb", "read_1024mb", "rw_256mb"):
-        require(ceil[k]["gbps"] < ds["hbm_gbps"], f"{k} below the data sheet")
-    for k, sheet in (("matmul_fp32", "fp32_tflops"), ("matmul_tf32", "tf32_tflops"),
-                     ("matmul_bf16", "bf16_tflops"), ("fma_fp32", "fp32_tflops")):
-        require(ceil[k]["tflops"] < ds[sheet], f"{k} below the data sheet")
-    hbm, l2 = ceil["rw_256mb"]["gbps"], ceil["rw_l2_16mb"]["gbps"]
-    l2_mb = by["device"]["l2_mb"]
-    stages = [leg for leg in legs if leg["leg"].split("_")[0] in
-              ("poly", "update", "solve", "resize", "full")]
-    total = by["full_clip"]["ms"]
-    over = []
-    for leg in stages:
-        print(f"  {leg['leg']:10s} {leg['ms']:.4f} ms ({leg['ms'] / total:.1%} of "
-              f"the clip call), {leg['model_mb']:.1f} MB, {leg['gbps']:.1f} GB/s: "
-              f"{leg['gbps'] / hbm:.1%} of the measured HBM read+write ceiling, "
-              f"{leg['gbps'] / l2:.1%} of the L2's, {leg['of_datasheet']:.1%} of "
-              f"the data sheet")
-        if leg["gbps"] > 1.05 * (l2 if leg["model_mb"] <= l2_mb else hbm):
-            over.append(leg["leg"])
-    require(not over, f"no stage above 105% of the measured read+write ceiling: "
-                      f"the HBM's, the L2's where all it moves fits in the "
-                      f"{l2_mb:.1f} MB L2 ({over})")
-
-
 def video_phase(torch, dev, passes=5, fps=30.0) -> dict:
     """Phase 27: the decoders' two forms on the committed fixtures, then
     the clip through four routes into the Farneback node on the card."""
@@ -4290,8 +4202,6 @@ def main() -> int:
         by_path.update(batcher_phase(torch, dev, args.trace))
     with phase("14 LFN3 JunctionMaskFlowNode 640x480"):
         by_path.update(junction_phase(torch, dev, args.trace))
-    with phase("15 measure_stream_latency 640x480"):
-        latency_phase(torch, dev)
     with phase("16 Lucas-Kanade 640x480 (calc_optical_flow_pyr_lk, LKVelocityNode)"):
         lk_phase(torch, dev, args.trace)
     with phase("17 RAFT-small 640x480 (estimate, FusedModelStream)"):
@@ -4312,8 +4222,6 @@ def main() -> int:
         by_path.update(junction_pipeline_phase(torch, dev, args.trace))
     with phase("25 scale-out (1-rank NCCL mesh at 2x1080p and RAFT-small, two ranks on one card)"):
         by_path.update(scaleout_phase(torch, dev))
-    with phase("26 stage roofline 720p T=5 (measured ceilings)"):
-        roofline_phase(torch, args.trace)
     with phase("27 compressed frames and video 640x480"):
         by_path.update(video_phase(torch, dev))
     with phase("28 packaged weights (seven npz served, evaluated, fine-tuned)"):

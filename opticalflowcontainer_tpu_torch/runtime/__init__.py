@@ -59,7 +59,6 @@ from .fused import (
     FusedModelStream,
     make_fused_farneback_backend,
     make_fused_model_backend,
-    measure_stream_latency,
 )
 from .junction_tracking import JunctionTracker
 from .adaptive import AdaptiveParams, make_adaptive_backend
@@ -95,7 +94,6 @@ __all__ = [
     "FusedModelStream",
     "make_fused_farneback_backend",
     "make_fused_model_backend",
-    "measure_stream_latency",
     "JunctionTracker",
     "AdaptiveParams",
     "make_adaptive_backend",

@@ -9,17 +9,10 @@ the previous frame's per-level expansion planes
 expanded once; :class:`FusedModelStream` carries the previous normalized
 frame into a learned model's ``estimate``.  ``step()`` returns the
 displacement as an unsynced 0-dim device tensor; ``float(du)`` syncs.
-
-:func:`measure_stream_latency` drives a stream at camera pace and reports
-the latency from a frame's arrival to its velocity scalar on the host;
-:func:`measure_device_stream_ms` times chained steps with CUDA events.
 """
 from __future__ import annotations
 
 import copy
-import queue as queue_mod
-import threading
-import time
 from typing import Callable
 
 import numpy as np
@@ -254,203 +247,3 @@ def make_fused_model_backend(model, estimate_fn: Callable,
     backend.returns_displacement = True
     backend.stream = stream
     return backend
-
-
-def _latency_frames(height: int, width: int, n: int) -> list[np.ndarray]:
-    """``n`` uint8 BGR frames of one random texture moving 1 px a frame
-    (seed 0, the reference's measurement frames)."""
-    rng = np.random.default_rng(0)
-    base = rng.uniform(0, 255, (height, width + 4 + n, 3)).astype(np.uint8)
-    return [np.ascontiguousarray(base[:, i : i + width]) for i in range(n)]
-
-
-def measure_stream_latency(
-    height: int = 480,
-    width: int = 640,
-    fps: float = 15.0,
-    n_frames: int = 40,
-    aggregate: str = "mean",
-    paced: bool = True,
-    sync_every: int = 1,
-    drain_async: bool = False,
-    stream=None,
-    chunk: int = 1,
-    *,
-    device=None,
-    **fb_kwargs,
-) -> dict:
-    """Drive a stream at camera pace and measure per-frame latency: from the
-    frame's arrival to its velocity scalar on the host (reference
-    ``runtime/fused.py:350``).  Returns p50/p99/mean latency (ms), the
-    sustained rate and whether it held ``fps``.
-
-    ``stream`` is any object with ``step(frame) -> du``, ``warmup`` and
-    ``reset`` (``step_many`` for ``chunk > 1``), e.g. a
-    :class:`FusedModelStream`; by default a :class:`FusedFarnebackStream`
-    with ``aggregate`` and ``fb_kwargs`` on ``device`` (the card unless
-    ``"cpu"`` is asked for).
-
-    ``sync_every=K > 1`` leaves K frames' du on the device and brings them
-    to the host in one copy.  ``drain_async=True`` makes those copies on a
-    second thread (the node's capture/inference split), so a slow copy does
-    not hold up the next frame's launches.  ``chunk=K > 1`` buffers K frames
-    and runs them through ``step_many`` from one upload, at the price of up
-    to K camera periods of buffering latency.  Each host copy waits for the
-    device work queued before it."""
-    if stream is None:
-        stream = FusedFarnebackStream(aggregate=aggregate, device=device,
-                                      **fb_kwargs)
-    frames = _latency_frames(height, width, n_frames)
-    stream.warmup(frames[0])
-    stream.reset()
-    stream.step(frames[0])
-    if chunk > 1:
-        # run the chunked path once outside the measurement window
-        stream.step_many(np.stack(frames[1 : 1 + chunk]))
-        stream.reset()
-        stream.step(frames[0])
-
-    lat: list[float] = []
-
-    def drain(batch):
-        """One host copy for the batch's (arrival times, du) entries."""
-        if not batch:
-            return
-        torch.cat([du.reshape(-1) for _, du in batch]).cpu()
-        t_done = time.perf_counter()
-        lat.extend(t_done - t for times, _ in batch for t in times)
-
-    worker = None
-    drain_err: list = []
-    if drain_async:
-        q: queue_mod.Queue = queue_mod.Queue()
-
-        def drainer():
-            # a failed copy must not end the thread silently: record it so
-            # held_rate fails instead of being computed from a short run
-            batch = []
-            try:
-                with device_scope(getattr(stream, "device", torch.device("cpu"))):
-                    while True:
-                        item = q.get()
-                        if item is None:
-                            drain(batch)
-                            return
-                        batch.append(item)
-                        if len(batch) >= sync_every:
-                            drain(batch)
-                            batch = []
-            except Exception as e:  # reported in the result
-                drain_err.append(repr(e))
-
-        worker = threading.Thread(target=drainer, daemon=True)
-        worker.start()
-
-    period = 1.0 / fps
-    pending: list = []
-    buf: list = []
-    buf_t: list = []
-    t_start = time.perf_counter()
-    t_next = t_start
-    for frame in frames[1:]:
-        if paced:
-            delay = t_next - time.perf_counter()
-            if delay > 0:
-                time.sleep(delay)
-            t_arrive = max(t_next, time.perf_counter())
-            t_next += period
-        else:
-            t_arrive = time.perf_counter()
-        if chunk > 1:
-            buf.append(frame)
-            buf_t.append(t_arrive)
-            if len(buf) < chunk:
-                continue
-            entry = (buf_t, stream.step_many(np.stack(buf)))
-            buf, buf_t = [], []
-        else:
-            entry = ([t_arrive], stream.step(frame))
-        if drain_async:
-            q.put(entry)
-        else:
-            pending.append(entry)
-            if len(pending) >= sync_every:
-                drain(pending)
-                pending = []
-    drainer_hung = False
-    if drain_async:
-        q.put(None)
-        worker.join(timeout=30.0)
-        drainer_hung = worker.is_alive()
-    else:
-        drain(pending)
-    elapsed = time.perf_counter() - t_start
-    raw = np.array(list(lat)) * 1000.0  # a hung drainer may still append
-    n = len(frames) - 1
-    n_expected = (n // chunk) * chunk
-    sustained = n / elapsed
-    result = {
-        "p50_ms": float("nan"), "p99_ms": float("nan"),
-        "mean_ms": float("nan"), "sustained_fps": sustained,
-        "target_fps": fps, "held_rate": False, "sync_every": sync_every,
-        "chunk": chunk, "drain_async": drain_async,
-        "drainer_hung": drainer_hung,
-        "drainer_error": drain_err[0] if drain_err else None,
-        "n_frames": n, "n_measured": int(raw.size),
-        "device": str(getattr(stream, "device", "")),
-    }
-    if raw.size == 0:
-        return result
-    if drain_async:
-        # held: camera pace kept, latency not growing over the run (a
-        # device or copy rate below fps shows as a rising latency), and
-        # every frame measured
-        q4 = max(len(raw) // 4, 1)
-        diverged = raw[-q4:].mean() > raw[:q4].mean() + 2.0 * 1000.0 / fps
-        complete = raw.size == n_expected and not drain_err
-        held = sustained >= 0.97 * fps and not diverged and complete
-    else:
-        # the typical frame's velocity lands within its sync_every camera
-        # periods, plus the chunk's buffering
-        budget_ms = 1000.0 / fps * (max(sync_every, 1)
-                                    + (chunk if chunk > 1 else 0))
-        held = (sustained >= 0.98 * fps
-                and float(np.percentile(raw, 50)) < budget_ms)
-    result.update(
-        p50_ms=float(np.percentile(raw, 50)),
-        p99_ms=float(np.percentile(raw, 99)),
-        mean_ms=float(raw.mean()),
-        held_rate=bool(held and not drainer_hung),
-    )
-    return result
-
-
-def measure_device_stream_ms(height: int = 480, width: int = 640,
-                             n_steps: int = 30, aggregate: str = "mean", *,
-                             device=None, **fb_kwargs) -> float:
-    """ms per frame of ``n_steps`` chained :class:`FusedFarnebackStream`
-    steps on the card: the frames are uploaded first, the steps are queued
-    back to back between two CUDA events, and the host waits once at the
-    end (reference ``runtime/fused.py:570``).  The window holds the device
-    work and any gap where the device waits for the host to launch the next
-    operation, so it is not pure device time (a step launches ~1,000
-    operations).  Needs a CUDA device."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise ValueError("measure_device_stream_ms times with CUDA events; "
-                         f"it needs a CUDA device, got {dev}")
-    frames = _latency_frames(height, width, n_steps + 1)
-    stream = FusedFarnebackStream(aggregate=aggregate, device=dev, **fb_kwargs)
-    with device_scope(dev):
-        x = torch.from_numpy(np.stack(frames)).to(dev)
-        stream.warmup(x[0])
-        stream.step(x[0])
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for f in x[1:]:
-            stream.step(f)
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / n_steps

@@ -8,8 +8,10 @@ has a counterpart of the same name in the same module of the port
   plain correlation for ``correlation_lax``, the CUDA kernels' wrappers for
   the Pallas kernels, the packaged-weight loaders gathered in
   ``models/convert.py``);
-- ``EXEMPT``: a name with no counterpart, and the TPU or XLA mechanism
-  that makes it one.
+- ``EXEMPT``: a name with no counterpart, and why it has none: either the
+  TPU or XLA mechanism that makes it one, or a measurement (a latency
+  driver, a byte count, a roofline tool) that the benchmark ``portbench/``
+  makes of the port, so the program carries none of its own.
 
 Both lists fail when they go stale: a JAX name that no longer exists, a
 rename whose target is missing, or an exemption (or rename) for a name the
@@ -61,6 +63,9 @@ RENAMES = {
 _BANDED = ("core/banded.py: dense banded operator matrices built on the device "
            "for the TPU's MXU matmul form of the separable filters and resizes; "
            "the port sums shifted slices")
+_MEASURED = "measured by `portbench/` ({}), not by the program"
+_STREAM = _MEASURED.format("loops/stream.py")
+_BYTES = _MEASURED.format("counts/farneback.py")
 _CACHE = ("utils/compile_cache.py: ships XLA's persistent compile cache for the "
           "TPU's remote compiles; the port compiles its kernels with nvcc")
 EXEMPT = {
@@ -87,6 +92,13 @@ EXEMPT = {
         "fat rows (the port's ops/allpairs.py packs for one flat gather instead)",
     ("ops/__init__.py", "pack_corr_pyramid"):
         "pack_corr_pyramid: the TPU gather layout, as in ops/allpairs.py",
+    ("runtime/fused.py", "measure_stream_latency"): _STREAM,
+    ("runtime/fused.py", "measure_device_stream_ms"): _STREAM,
+    ("runtime/__init__.py", "measure_stream_latency"): _STREAM,
+    ("classical/farneback.py", "farneback_traffic_breakdown"): _BYTES,
+    ("classical/farneback.py", "farneback_bytes_per_field"): _BYTES,
+    ("tools/stage_roofline.py", "main"): _MEASURED.format(
+        "counts/farneback.py, metrics/*_roofline.py"),
 }
 
 

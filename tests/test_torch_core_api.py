@@ -1,9 +1,9 @@
 """The port's remaining public API against the JAX package and cv2 on
 seeded numpy inputs: ``core/filters.py`` ``gaussian_blur``, ``box_filter``
 and ``sobel``; ``core/color.py`` ``bgr_to_rgb`` and ``normalize_image``;
-``models/common.py`` ``fuse_conv_bn``; ``classical/farneback.py``
-``farneback_bytes_per_field``; and the ``core`` and ``ops`` packages'
-exports.
+``models/common.py`` ``fuse_conv_bn``; and the ``core`` and ``ops``
+packages' exports.  (The byte count of Farneback's stages is the
+benchmark's, ``portbench/counts/farneback.py``, and its tests are there.)
 
 Bars: the filters within 1e-5 of the 0-255 scale (2.55e-3) of JAX and of
 cv2 (fp32 sums of shifted slices on both sides; cv2 sums in its own order
@@ -14,13 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from opticalflowcontainer_tpu.classical import farneback as jfb
 from opticalflowcontainer_tpu.core import color as jcolor
 from opticalflowcontainer_tpu.core import filters as jfilters
 from opticalflowcontainer_tpu.models import common as jcommon
 from opticalflowcontainer_tpu_torch import core as tcore
 from opticalflowcontainer_tpu_torch import ops as tops
-from opticalflowcontainer_tpu_torch.classical import farneback as tfb
 from opticalflowcontainer_tpu_torch.core import color as tcolor
 from opticalflowcontainer_tpu_torch.core import filters as tfilters
 from opticalflowcontainer_tpu_torch.models import common as tcommon
@@ -151,19 +149,6 @@ def test_fuse_conv_bn_matches_jax_and_conv_then_batchnorm(with_bias):
                                          torch.from_numpy(np.asarray(fb, np.float32)),
                                          padding=1)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-
-
-@pytest.mark.parametrize("size,kw", [((480, 640), {}), ((720, 1280), {"clip_frames": 7}),
-                                     ((1080, 1920), {"clip_frames": None, "levels": 4}),
-                                     ((96, 128), {"iterations": 1, "pyr_scale": 0.7})])
-def test_farneback_bytes_per_field_is_its_breakdowns_sum(size, kw):
-    """The port's own bytes (no equality with the reference's TPU count
-    is asked: exact sampling, no block warp)."""
-    total = tfb.farneback_bytes_per_field(*size, **kw)
-    parts = tfb.farneback_traffic_breakdown(*size, **kw)
-    assert total == parts["total"] == sum(parts[k] for k in ("poly", "update", "solve",
-                                                             "resize"))
-    assert total > 0 and jfb.farneback_bytes_per_field(*size, **kw) > 0
 
 
 def test_core_and_ops_export_callables():

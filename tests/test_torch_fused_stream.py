@@ -59,6 +59,29 @@ def test_step_many_equals_step_bitwise():
         tfused.FusedFarnebackStream(device="cpu").step_many(np.stack(f))
 
 
+@pytest.mark.parametrize("seeded", [False, True], ids=["unseeded", "seeded"])
+def test_warmup_keeps_the_state_and_reset_clears_it(seeded):
+    """``warmup`` runs the first-frame and steady-state steps and puts the
+    state back as it found it (None, or the seeding frame's planes, the same
+    tensors), so the next du is that of a stream never warmed up; ``reset``
+    clears the state and the next step seeds again."""
+    f = _frames(n=3)
+    a = tfused.FusedFarnebackStream(device="cpu", **FB)
+    b = tfused.FusedFarnebackStream(device="cpu", **FB)
+    if seeded:
+        a.step(f[0])
+        b.step(f[0])
+    before = a._state
+    a.warmup(f[2])
+    assert a._state is before
+    if not seeded:
+        assert a.step(f[0]) is None and b.step(f[0]) is None
+    assert torch.equal(a.step(f[1]), b.step(f[1]))
+    a.reset()
+    assert a._state is None
+    assert a.step(f[1]) is None and a._state is not None
+
+
 def test_stream_step_equals_pairwise_flow():
     """Carrying the planes changes nothing: the step's flow is the pairwise
     flow, exactly, and the returned state is the new frame's planes."""
