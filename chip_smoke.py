@@ -54,6 +54,12 @@ seconds:
    640x480) and NeuFlow-v2's two (at 768x432, radius 4); each launch run twice and
    the two held bit for bit; timed beside its bound at B=8 and at each B=1
    correlation;
+7b. K6 lookup_packed vs its plain version, bit for bit, at RAFT's 1080p
+   cell shape (B=2 at 1/8, radius 4), RAFT-small's radius 3 there and
+   640x480's features at B=1 and B=8, with flows of up to 1 px, a subpixel,
+   tens of pixels and windows off every level; one launch a call; timed
+   (events and graph replay) beside the plain version and its least bytes
+   by the benchmark's count and by the window's distinct taps;
 8. the PWC-Net path at 640x480 on seeded weights (a width-only timing
    phase, phase 28 serves the packaged npz): K3 and K4 launches per estimate call; the
    kernel path vs the plain path on the card and vs the CPU; latency at
@@ -89,7 +95,8 @@ seconds:
    pairs/s and the device time by part (all-pairs product, pyramid,
    lookup, convolutions, the rest); RAFT-small also as a 200-frame
    FusedModelStream at iters=8, the demo's.  Phases 16-18 launch none of
-   K1-K5 (their wrappers' counters hold it);
+   K1-K5, and phases 17-18 K6 once a lookup (the wrappers' counters hold
+   it);
 19. and 20. NeuFlowLite at 640x480 and NeuFlow-v2 at 768x432 (the
    reference NeuFlow node's size) on seeded weights: K3 and K4 launches
    per estimate (2 and 2, 9 and 9), the kernel path against the plain path
@@ -1419,6 +1426,118 @@ def k4_phase(torch, dev, seed=6) -> dict:
     return entry
 
 
+# K6's shapes, (B, h, w, radius): RAFT's cell (1080p features at 1/8, B = 2,
+# r = 4; the first is the one timed for PERF.md), RAFT-small's r = 3 there,
+# and 640x480's features at B = 1 and B = 8 (phases 17-18)
+K6_SHAPES = ((2, 135, 240, 4), (2, 135, 240, 3), (1, 60, 80, 4), (8, 60, 80, 4))
+K6_FLOWS = ("cell", "subpixel", "tens", "outside")
+
+
+def k6_packed(torch, B, h, w, dev, seed, levels=4):
+    """A packed pyramid's layout for h x w features (each level the one
+    before halved, rounded down, as corr_pyramid pools it) filled with
+    seeded normal values (the lookup reads any values alike)."""
+    from opticalflowcontainer_tpu_torch.ops.allpairs import PackedPyramid
+
+    sizes, col = [], 0
+    for _ in range(levels):
+        sizes.append((col, h, w))
+        col += h * w
+        h, w = h // 2, w // 2
+    g = torch.Generator(dev).manual_seed(seed)
+    flat = torch.randn((B, sizes[0][1] * sizes[0][2], col), generator=g, device=dev)
+    return PackedPyramid(flat, tuple(sizes))
+
+
+def k6_flow(torch, kind, B, h, w, dev, seed):
+    """cell: up to 1 px at 1/8 (the cell's shifts of up to 8 px a frame);
+    subpixel: under 0.5 px; tens: up to 40 px; outside: every other pixel
+    carried 2w + 60 px right and 2h + 60 px up, off every level."""
+    g = torch.Generator(dev).manual_seed(seed)
+    reach = {"cell": 1.0, "subpixel": 0.5}.get(kind, 40.0)
+    flow = (torch.rand((B, 2, h, w), generator=g, device=dev) * 2 - 1) * reach
+    if kind == "outside":
+        flow[:, 0, :, ::2] = 2 * w + 60.0
+        flow[:, 1, :, ::2] = -(2 * h + 60.0)
+    return flow
+
+
+def k6_bytes(torch, packed, flow, radius) -> tuple[int, int, int]:
+    """Least bytes of one lookup two ways, and its operations.  The
+    benchmark's count (portbench/counts/raft_large.py ``lookup``): each
+    sample's four taps read and the sample written, 20 B a sample.  The
+    window's distinct taps: each level's (2r+2)^2 taps around floor(c)
+    that lie on the level, read once, the flow read and the samples
+    written once.  8 operations a sample."""
+    B, _, h, w = flow.shape
+    n = 2 * radius + 1
+    samples = B * h * w * len(packed.sizes) * n * n
+    xs = torch.arange(w, dtype=torch.float32, device=flow.device)
+    ys = torch.arange(h, dtype=torch.float32, device=flow.device)[:, None]
+    cx, cy = xs + flow[:, 0], ys + flow[:, 1]
+    taps = 0
+    for lvl, (_, hl, wl) in enumerate(packed.sizes):
+        on = []
+        for c, side in ((cy, hl), (cx, wl)):
+            k = torch.floor(c * 0.5**lvl).clamp(-1e6, 1e6).long()
+            on.append((torch.minimum(k + radius + 1, torch.full_like(k, side - 1))
+                       - torch.clamp(k - radius, min=0) + 1).clamp(min=0))
+        taps += int((on[0] * on[1]).sum())
+    return 20 * samples, 4 * (taps + samples) + 8 * B * h * w, 8 * samples
+
+
+def k6_phase(torch, dev, seed=26) -> dict:
+    """Phase 7b: K6 lookup_packed against its plain version, bit for bit, at
+    K6_SHAPES with K6_FLOWS (exact zeros where a window is off every
+    level), one launch a call; each shape timed by events and graph replay
+    on the cell's flows beside the plain version and both least-bytes
+    bounds."""
+    from opticalflowcontainer_tpu_torch.ops import allpairs
+
+    shapes = []
+    for B, h, w, r in K6_SHAPES:
+        packed = k6_packed(torch, B, h, w, dev, seed + r)
+        for kind in K6_FLOWS:
+            flow = k6_flow(torch, kind, B, h, w, dev, seed)
+            before = allpairs.lookup_packed.launches
+            got = allpairs.lookup_packed(packed, flow, r)
+            torch.cuda.synchronize()
+            require(allpairs.lookup_packed.launches == before + 1,
+                    f"K6 [{B}, {h}, {w}] r={r}: one launch a call")
+            want = allpairs._lookup_packed(packed, flow, r)
+            gap = float((got - want).abs().max())
+            require(torch.equal(got, want), f"K6 [{B}, {h}, {w}] r={r} {kind} flow "
+                    f"equals its plain version bit for bit (max gap {gap:.2e})")
+            if kind == "outside":
+                require(not bool(got[..., ::2].any()),
+                        "K6: a window off every level reads zeros")
+            del got, want
+        flow = k6_flow(torch, "cell", B, h, w, dev, seed)
+        ms = cuda_ms(lambda: allpairs.lookup_packed(packed, flow, r), reps=20)
+        g_ms = graph_ms(lambda: allpairs._kernel(packed.flat, flow, packed.sizes, r))
+        plain_ms = cuda_ms(lambda: allpairs._lookup_packed(packed, flow, r), reps=3)
+        counted, distinct, ops = k6_bytes(torch, packed, flow, r)
+        b_ms, by = bound_ms(counted, ops)
+        d_ms, _ = bound_ms(distinct, ops)
+        print(f"K6 [{B}, {h}, {w}] r={r}, {len(packed.sizes)} levels: {ms:.4f} ms per "
+              f"call, events (graph replay {g_ms:.4f} ms); plain {plain_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms by {by} of the benchmark's count "
+              f"({counted / 1e6:.1f} MB: {b_ms / g_ms:.1%} of it by graph), "
+              f"{d_ms:.4f} ms by the window's distinct taps ({distinct / 1e6:.1f} MB: "
+              f"{d_ms / g_ms:.1%})")
+        shapes.append({"shape": [B, h, w], "radius": r, "ms": ms, "graph_ms": g_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                       "distinct_bound_ms": d_ms})
+        del packed, flow
+    head = shapes[0]
+    return {"name": "lookup_packed", "route": "cuda",
+            "source": "opticalflowcontainer_tpu_torch/ops/csrc/allpairs_lookup.cu",
+            "replaces": None, "max_abs_err": 0.0, "ms": head["ms"],
+            "graph_ms": head["graph_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
 def seeded_pwcnet(torch, seed: int, device):
     """PWC-Net at full width with He-normal weights (std sqrt(2 / fan_in))
     from a seeded torch.Generator and zero biases: flows of a few to ~40 px
@@ -1745,6 +1864,7 @@ def model_stream_phase(torch, dev, trace_dir, H=480, W=640, n=201, dx=1.5,
 
 
 def _counted() -> tuple:
+    from opticalflowcontainer_tpu_torch.ops.allpairs import lookup_packed
     from opticalflowcontainer_tpu_torch.ops.correlation import local_correlation
     from opticalflowcontainer_tpu_torch.ops.farneback_prep import farneback_prep
     from opticalflowcontainer_tpu_torch.ops.farneback_update import farneback_update
@@ -1752,11 +1872,11 @@ def _counted() -> tuple:
     from opticalflowcontainer_tpu_torch.ops.warp_bilinear import warp_bilinear
 
     return (farneback_update, blur_solve, warp_bilinear, local_correlation,
-            farneback_prep)
+            farneback_prep, lookup_packed)
 
 
 def kernel_counts() -> dict:
-    """The five wrappers' launch counts (read after a path's run)."""
+    """The six wrappers' launch counts (read after a path's run)."""
     return {f.__name__: f.launches for f in _counted()}
 
 
@@ -2077,12 +2197,16 @@ def junction_phase(torch, dev, trace_dir, H=480, W=640, n=100, dx=1.5,
     return {"junction_lfn3": counts}
 
 
-def assert_no_kernel_launches(what: str) -> None:
-    """The paths of phases 16-18 reach none of K1-K4 (the reference's LK and
-    RAFT reach no Pallas kernel): a stray route through one shows here."""
+def assert_no_kernel_launches(what: str, lookups: int = 0) -> None:
+    """The paths of phases 16-18 reach none of K1-K5 (the reference's LK and
+    RAFT reach no Pallas kernel), and K6 once for each of the ``lookups``
+    RAFT's updates made (none on LK's path): a stray route shows here."""
     counts = kernel_counts()
-    print(f"  {what}: launches of K1-K5 {counts} (expected none)")
+    k6 = counts.pop("lookup_packed")
+    print(f"  {what}: launches of K1-K5 {counts} (expected none), of K6 {k6} "
+          f"(expected {lookups}, one a lookup)")
     require(not any(counts.values()), f"{what} launches none of K1-K5")
+    require(k6 == lookups, f"{what} launches K6 once a lookup")
 
 
 def lk_phase(torch, dev, trace_dir, H=480, W=640, shift=(1.37, -0.62), n=90,
@@ -2278,7 +2402,7 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
                n=201, seed=17) -> None:
     """Phase 17 (RAFT-small) or 18 (RAFT, ``large``) at 640x480 on seeded
     weights: estimate at iters=12 launches none of K1-K5 and counts iters
-    calls of ``lookup_packed`` (``.calls``); card vs CPU with
+    calls of ``lookup_packed`` (``.calls``), each one K6 launch; card vs CPU with
     fp32 convolutions at 192x128; the served flow (the model holds its
     convolutions in fp32) against fp32, and what TF32 convolutions would
     give; final_only against the stacked flows; B=1 latency over 50 calls,
@@ -2301,8 +2425,8 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
     lookups = allpairs.lookup_packed.calls
     flow = est(model, i1, i2)
     torch.cuda.synchronize()
-    assert_no_kernel_launches(f"{label} estimate")
     lookups = allpairs.lookup_packed.calls - lookups
+    assert_no_kernel_launches(f"{label} estimate", lookups)
     print(f"  {label} estimate: lookup_packed.calls {lookups} (expected iters={iters})")
     require(lookups == iters, f"{label} looks the volume up once an update")
     require(tuple(flow.shape) == (1, H, W, 2), f"flow shape {tuple(flow.shape)}")
@@ -2383,13 +2507,16 @@ def raft_phase(torch, dev, trace_dir, large: bool, H=480, W=640, iters=12,
                               device=dev)
     stream.warmup(frames[0])
     reset_counts()
+    lookups = allpairs.lookup_packed.calls
     require(stream.step(frames[0]) is None, "first frame seeds the state")
     dus, lat = [], []
     for f in frames[1:]:
         t0 = time.perf_counter()
         dus.append(float(stream.step(f)))  # syncs
         lat.append((time.perf_counter() - t0) * 1e3)
-    assert_no_kernel_launches("the RAFT-small FusedModelStream")
+    lookups = allpairs.lookup_packed.calls - lookups
+    require(lookups == 8 * (n - 1), "the stream looks the volume up 8 times a frame")
+    assert_no_kernel_launches("the RAFT-small FusedModelStream", lookups)
     lat = np.array(lat)
     print(f"{W}x{H} RAFT-small FusedModelStream (iters=8, the demo's), {n - 1} uint8 "
           f"BGR frames (host clock, numpy frame to synced du): p50 "
@@ -2485,7 +2612,8 @@ def neuflow_phase(torch, dev, trace_dir, v2: bool, n=201, fps=30.0) -> dict:
         if v2 else
         (neuflow, neuflow.NeuFlowLite, "NeuFlowLite", "neuflow_lite", (480, 640), 19))
     est = mod.estimate
-    expect = dict(farneback_update=0, blur_solve=0, farneback_prep=0, **NEUFLOW_LAUNCHES[tag])
+    expect = dict(farneback_update=0, blur_solve=0, farneback_prep=0, lookup_packed=0,
+                  **NEUFLOW_LAUNCHES[tag])
     model = seeded_neuflow(torch, cls, seed, dev)
     n_params = sum(p.numel() for p in model.parameters())
     i1, i2 = image_pairs(torch, H, W, 1, dev)
@@ -2745,14 +2873,17 @@ def eval_rows(run_eval, argv) -> list:
     return rows
 
 
-# K3 and K4 launches per eval pair (one estimate) of each learned method,
-# by run_eval's name: phases 8-10, 17-20 count the same per estimate
-EVAL_LAUNCHES = {"pwcnet": {"warp_bilinear": 4, "local_correlation": 5},
-                 "liteflownet": LFN_LAUNCHES, "liteflownet3": LFN3_LAUNCHES,
-                 "raft": {"warp_bilinear": 0, "local_correlation": 0},
-                 "raft_large": {"warp_bilinear": 0, "local_correlation": 0},
-                 "neuflow": NEUFLOW_LAUNCHES["neuflow_lite"],
-                 "neuflow_v2": NEUFLOW_LAUNCHES["neuflow_v2"]}
+# K3, K4 and K6 launches per eval pair (one estimate) of each learned
+# method, by run_eval's name: phases 8-10, 17-20 count the same per estimate
+# (RAFT's K6 once a lookup: run_eval's 12 iterations)
+EVAL_LAUNCHES = {name: {**k34, "lookup_packed": 12 if name.startswith("raft") else 0}
+                 for name, k34 in (
+                     ("pwcnet", {"warp_bilinear": 4, "local_correlation": 5}),
+                     ("liteflownet", LFN_LAUNCHES), ("liteflownet3", LFN3_LAUNCHES),
+                     ("raft", {"warp_bilinear": 0, "local_correlation": 0}),
+                     ("raft_large", {"warp_bilinear": 0, "local_correlation": 0}),
+                     ("neuflow", NEUFLOW_LAUNCHES["neuflow_lite"]),
+                     ("neuflow_v2", NEUFLOW_LAUNCHES["neuflow_v2"]))}
 README_FARNEBACK_FISHNET_EPE = 0.094  # README.md's table: the JAX package's
 
 
@@ -3991,7 +4122,7 @@ def packaged_eval(run_eval, n_eval: int, card_name: str, by_path: dict) -> list:
     want = {"farneback_update": n_eval * per_pair, "blur_solve": n_eval * per_pair,
             "farneback_prep": n_eval * 2 * per_pair // 3}  # two frames a level
     want.update((k, n_eval * sum(EVAL_LAUNCHES[m][k] for m in PACKAGED))
-                for k in ("warp_bilinear", "local_correlation"))
+                for k in ("warp_bilinear", "local_correlation", "lookup_packed"))
     print(f"  run_eval --method {methods} --fishnet --n {n_eval}: "
           f"{time.perf_counter() - t0:.2f} s; launches {counts} (expected {want})")
     require(counts == want, "run_eval launched K1/K2 (levels + 1) x 3 times a "
@@ -4188,6 +4319,8 @@ def main() -> int:
         k3 = k3_phase(torch, dev)
     with phase("7 K4 local_correlation vs plain"):
         k4 = k4_phase(torch, dev)
+    with phase("7b K6 lookup_packed vs plain"):
+        k6 = k6_phase(torch, dev)
     with phase("8 PWC-Net 640x480 (correlation path)"):
         by_path["pwcnet"] = pwc_phase(torch, dev, args.trace)
     with phase("9 LiteFlowNet3 640x480"):
@@ -4227,12 +4360,12 @@ def main() -> int:
     with phase("28 packaged weights (seven npz served, evaluated, fine-tuned)"):
         by_path.update(packaged_phase(torch, dev))
     # each path's counts were set to 0 just before its run and read after
-    for k in (k1, k2, k3, k4, k5):
+    for k in (k1, k2, k3, k4, k5, k6):
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()
                                  if n.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -9,9 +9,10 @@ volume and ConvGRU refinement.
   128 each, a radius-4 lookup, a SepConvGRU(128), the learned convex 8x
   upsampling; 12 iterations.
 
-The volume is one batched product and the lookup one gather a step
-(``ops/allpairs.py``); no Pallas kernel is on this path in the reference,
-so none of the port's CUDA kernels is either.  InstanceNorm statistics are
+The volume is one batched product and the lookup one launch a step of K6
+on the card (``ops/allpairs.py``, a stage the reference leaves to XLA; no
+Pallas kernel is on this path in the reference, so none of K1-K5 is
+either).  InstanceNorm statistics are
 fp32 and per image (both frames run the feature encoder as one batch of
 2B); the flow, the volume and its lookup stay fp32.  A model served in
 fp32 runs its convolutions in fp32 on the card too, their algorithms

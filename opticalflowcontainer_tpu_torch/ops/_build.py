@@ -60,6 +60,10 @@ _SIGNATURES = {
     "ofc_farneback_prep": (_I, [_P, _P, _I, _I, _I, _I, _I] + [_P] * 9
                            + [_I, _I, ctypes.POINTER(ctypes.c_float)]
                            + [_I] * 5 + [_P]),
+    # flat, flow, out, B, H, W, K, radius, levels, sizes (host: levels x
+    # (first column, h, w)), stream
+    "ofc_allpairs_lookup": (_I, [_P, _P, _P] + [_I] * 6
+                            + [ctypes.POINTER(ctypes.c_int), _P]),
     # host code: bgr, H, W, grid_area, area_tol, cluster_eps,
     # min_cluster_pts, rb_lo, rb_hi, rotated, out_xy, max_out
     "ofc_detect_junctions": (_I, [_P, _I, _I, _D, _D, _D, _I, _D, _D, _I,

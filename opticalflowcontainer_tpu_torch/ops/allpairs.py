@@ -12,20 +12,26 @@
    taps of a sample reading zero outside the level; channels level-major,
    then row-major over (dy, dx).
 
-The lookup is integer index arithmetic and one ``torch.gather`` over every
-level at once (the levels packed side by side by :func:`pack_pyramid`, once
-a frame pair), not ``F.grid_sample``: a level one pixel wide (RAFT's
-coarsest at small inputs) would read ``v`` where the reference reads
-``(1 - x) v``, and grid_sample's normalized round trip perturbs the
-weights.  The reference computes all three outside any Pallas kernel, so
-they stay plain PyTorch on every device.  Its TPU gather layouts
-(``pack_corr_pyramid``, the row and packed window samplers) have no
-counterpart.
+The lookup runs over every level at once (the levels packed side by side
+by :func:`pack_pyramid`, once a frame pair), not ``F.grid_sample``: a
+level one pixel wide (RAFT's coarsest at small inputs) would read ``v``
+where the reference reads ``(1 - x) v``, and grid_sample's normalized
+round trip perturbs the weights.  The reference computes all three outside
+any Pallas kernel.  Here the product and the pyramid stay plain PyTorch on
+every device; the lookup is K6 on the card (:func:`lookup_packed`, the
+CUDA source ``csrc/allpairs_lookup.cu``, whose header states the design
+and the bound: bytes), one launch a lookup that writes the update's layout,
+and on the CPU its plain version, integer index arithmetic and one
+``torch.gather`` (:func:`_lookup_packed`).  The reference's TPU gather
+layouts (``pack_corr_pyramid``, the row and packed window samplers) have
+no counterpart.
 
 Layout: features [B, C, H, W]; volume levels [B, H, W, h_l, w_l].
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -34,6 +40,12 @@ import torch
 
 from ..core import spans
 from ..core.device import cached_tensors
+from ._build import check_launch, load_kernels
+from ._vjp import plain_vjp
+
+MAX_RADIUS = 4  # the source's kMaxRadius
+MAX_LEVELS = 8  # its kMaxLevels
+MAX_SIDE = 65535  # a level's height and width, at most
 
 
 def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
@@ -102,20 +114,133 @@ def _lookup_tables(radius: int, sizes: tuple, device: torch.device):
 
 def lookup_packed(packed: PackedPyramid, flow: torch.Tensor,
                   radius: int) -> torch.Tensor:
-    """:func:`corr_lookup` on a :class:`PackedPyramid`: one gather over
-    every level, offset and tap, under the span ``ofc.raft.lookup``; each
-    call counts one (``lookup_packed.calls``, RAFT's ``iters`` an
-    estimate)."""
+    """:func:`corr_lookup` on a :class:`PackedPyramid` and ``flow``
+    [B, 2, H, W] -> [B, L (2r+1)^2, H, W], under the span
+    ``ofc.raft.lookup``; each call counts one (``lookup_packed.calls``,
+    RAFT's ``iters`` an estimate).
+
+    CUDA tensors launch K6 once on the current stream (counted in
+    ``lookup_packed.launches``), through :class:`LookupFunction` where an
+    input needs a gradient; the card takes fp32 volumes, a radius up to
+    :data:`MAX_RADIUS` and up to :data:`MAX_LEVELS` levels, and raises on
+    the rest.  CPU tensors take the plain version, :func:`_lookup_packed`."""
     lookup_packed.calls += 1
     with spans.annotate(spans.RAFT_LOOKUP):
-        return _lookup_packed(packed, flow, radius)
+        _check(packed, flow, radius)
+        if flow.device.type == "cpu":
+            return _lookup_packed(packed, flow, radius)
+        if flow.device.type != "cuda":
+            raise ValueError(f"unsupported device {flow.device}")
+        flow = flow.float().contiguous()
+        _check_kernel(packed, flow, radius)
+        if torch.is_grad_enabled() and (packed.flat.requires_grad
+                                        or flow.requires_grad):
+            return LookupFunction.apply(packed.flat, flow, packed.sizes, radius)
+        return _kernel(packed.flat, flow, packed.sizes, radius)
 
 
 lookup_packed.calls = 0
+lookup_packed.launches = 0
+
+
+def _check(packed: PackedPyramid, flow: torch.Tensor, radius: int) -> None:
+    """What any route needs: flow [B, 2, H, W] beside flat [B, H*W, K] on
+    its device, and levels packed side by side over the K columns."""
+    flat, sizes = packed
+    if flow.dim() != 4 or flow.shape[1] != 2:
+        raise ValueError(f"flow must be [B, 2, H, W], got {tuple(flow.shape)}")
+    B, _, H, W = flow.shape
+    if flat.dim() != 3 or tuple(flat.shape[:2]) != (B, H * W):
+        raise ValueError(f"the packed volume must be [{B}, {H * W}, K] for a "
+                         f"flow of {tuple(flow.shape)}, got {tuple(flat.shape)}")
+    if flat.device != flow.device:
+        raise ValueError(f"flow is on {flow.device}, the volume on {flat.device}")
+    if radius < 0:
+        raise ValueError(f"radius must be >= 0, got {radius}")
+    col = 0
+    for first, h, w in sizes:
+        if first != col or h < 0 or w < 0:
+            raise ValueError(f"levels {sizes} are not packed side by side")
+        col += h * w
+    if col != flat.shape[-1]:
+        raise ValueError(f"levels {sizes} fill {col} columns, the volume has "
+                         f"{flat.shape[-1]}")
+
+
+def _check_kernel(packed: PackedPyramid, flow: torch.Tensor,
+                  radius: int) -> None:
+    """What K6 takes beyond :func:`_check`; the card's route raises on the
+    rest."""
+    flat, sizes = packed
+    if flat.dtype != torch.float32:
+        raise TypeError(f"the packed volume must be float32, got {flat.dtype}")
+    if not flat.is_contiguous():
+        raise ValueError("the packed volume must be contiguous")
+    if radius > MAX_RADIUS:
+        raise ValueError(f"the kernel takes a radius up to {MAX_RADIUS}, got {radius}")
+    if not 1 <= len(sizes) <= MAX_LEVELS:
+        raise ValueError(f"the kernel takes 1..{MAX_LEVELS} levels, got {len(sizes)}")
+    if any(max(h, w) > MAX_SIDE for _, h, w in sizes):
+        raise ValueError(f"a level's side exceeds {MAX_SIDE}: {sizes}")
+    if flow.shape[0] > 65535:
+        raise ValueError(f"batch {flow.shape[0]} exceeds the launch grid (65535)")
+
+
+@functools.lru_cache(maxsize=32)
+def _host_sizes(sizes: tuple):
+    """The levels' (first column, h_l, w_l) as the launcher's int array."""
+    flat = [v for level in sizes for v in level]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _kernel(flat: torch.Tensor, flow: torch.Tensor, sizes: tuple,
+            radius: int) -> torch.Tensor:
+    """K6's forward on checked CUDA tensors (``flow`` fp32 and contiguous),
+    counted in ``lookup_packed.launches``."""
+    B, _, H, W = flow.shape
+    L = len(sizes)
+    out = torch.empty((B, L * (2 * radius + 1) ** 2, H, W), dtype=torch.float32,
+                      device=flow.device)
+    if out.numel() == 0:
+        return out
+    # the launcher runs on the current device: select flow's for the call only
+    with torch.cuda.device(flow.device):
+        err = load_kernels().ofc_allpairs_lookup(
+            flat.data_ptr(), flow.data_ptr(), out.data_ptr(), B, H, W,
+            flat.shape[-1], radius, L, _host_sizes(tuple(sizes)),
+            torch.cuda.current_stream(flow.device).cuda_stream)
+    check_launch(err, "allpairs_lookup")
+    lookup_packed.launches += 1
+    return out
+
+
+def _lookup_flat(flat: torch.Tensor, flow: torch.Tensor, sizes: tuple,
+                 radius: int) -> torch.Tensor:
+    return _lookup_packed(PackedPyramid(flat, sizes), flow, radius)
+
+
+class LookupFunction(torch.autograd.Function):
+    """K6 with a gradient: the forward is the kernel, the backward the
+    autograd of the plain version on the saved inputs (RAFT-small trains
+    through the volume)."""
+
+    @staticmethod
+    def forward(ctx, flat, flow, sizes, radius):
+        ctx.save_for_backward(flat, flow)
+        ctx.config = (sizes, radius)
+        return _kernel(flat, flow, sizes, radius)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return plain_vjp(_lookup_flat, ctx.saved_tensors,
+                         ctx.needs_input_grad[:2], grad, *ctx.config)
 
 
 def _lookup_packed(packed: PackedPyramid, flow: torch.Tensor,
                    radius: int) -> torch.Tensor:
+    """The plain version of K6 (any device): integer index arithmetic over
+    [B, H, W, L, (2r+1)^2, 4] temporaries and one gather."""
     B, _, H, W = flow.shape
     flat = packed.flat
     scale, oy, ox, col, hl, wl, tap_dy, tap_dx = _lookup_tables(

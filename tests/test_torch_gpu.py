@@ -14,7 +14,8 @@ import torch
 from opticalflowcontainer_tpu_torch.classical import farneback as fb
 from opticalflowcontainer_tpu_torch.core import device as dv
 from opticalflowcontainer_tpu_torch.core import spans
-from opticalflowcontainer_tpu_torch.models import pwcnet
+from opticalflowcontainer_tpu_torch.models import pwcnet, raft
+from opticalflowcontainer_tpu_torch.ops import allpairs as k6
 from opticalflowcontainer_tpu_torch.ops import correlation as k4
 from opticalflowcontainer_tpu_torch.ops import farneback_prep as k5
 from opticalflowcontainer_tpu_torch.ops import farneback_update as k1
@@ -66,6 +67,83 @@ def test_blur_solve_kernel_matches_plain(winsize, gaussian, cuda):
     assert k2.blur_solve.launches == before + 1
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+# (B, h, w, radius, flow): RAFT's cell (1080p at 1/8, B = 2, r = 4) and
+# RAFT-small's r = 3 there; 64x64 and 56x72 inputs' features, whose
+# coarsest levels are 1 x 1 and 0 x 1
+LOOKUP_CASES = [(2, 135, 240, 4, "subpixel"), (2, 135, 240, 4, "tens"),
+                (2, 135, 240, 4, "outside"), (2, 135, 240, 3, "tens"),
+                (2, 8, 8, 4, "tens"), (2, 8, 8, 3, "outside"),
+                (2, 7, 9, 4, "subpixel"), (2, 7, 9, 3, "tens")]
+
+
+@pytest.mark.parametrize("B,h,w,radius,kind", LOOKUP_CASES)
+def test_lookup_kernel_matches_plain(B, h, w, radius, kind, cuda):
+    """K6 against ``_lookup_packed`` on the same inputs, bit for bit: the
+    kernel forms coordinates, floors, weights and the four-tap sum in the
+    plain version's order without FMA contraction.  Taps off a level read
+    exactly zero; a window off every level gives zeros.  One launch a
+    call.  Inputs from chip_smoke.py's phase 7b (``k6_packed``,
+    ``k6_flow``)."""
+    import chip_smoke
+
+    packed = chip_smoke.k6_packed(torch, B, h, w, cuda, seed=h * w + radius)
+    flow = chip_smoke.k6_flow(torch, kind, B, h, w, cuda, seed=radius)
+    before = k6.lookup_packed.launches
+    got = k6.lookup_packed(packed, flow, radius)
+    torch.cuda.synchronize()
+    assert k6.lookup_packed.launches == before + 1
+    want = k6._lookup_packed(packed, flow, radius)
+    assert got.shape == (B, 4 * (2 * radius + 1) ** 2, h, w)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if kind == "outside":
+        assert not got[..., ::2].any()
+
+
+@pytest.mark.parametrize("radius", [3, 4])
+def test_lookup_gradient_through_the_function(radius, cuda):
+    """Under autograd the card runs ``LookupFunction``: its forward is K6
+    (bit for bit the plain forward), its backward the plain version's
+    autograd.  Gradients of the volume and the flow against the plain
+    lookup's autograd on the card within 1e-5 of their max: the gather's
+    backward adds with atomics, in no fixed order."""
+    import chip_smoke
+
+    packed = chip_smoke.k6_packed(torch, 2, 12, 17, cuda, seed=radius)
+    flow = chip_smoke.k6_flow(torch, "tens", 2, 12, 17, cuda, seed=5) / 8
+    cot = torch.randn((2, 4 * (2 * radius + 1) ** 2, 12, 17),
+                      generator=torch.Generator(cuda).manual_seed(6), device=cuda)
+    ins = [packed.flat.clone().requires_grad_(), flow.clone().requires_grad_()]
+    before = k6.lookup_packed.launches
+    out = k6.lookup_packed(packed._replace(flat=ins[0]), ins[1], radius)
+    assert out.grad_fn is not None and k6.lookup_packed.launches == before + 1
+    got = torch.autograd.grad(out, ins, cot)
+    ref = [packed.flat.clone().requires_grad_(), flow.clone().requires_grad_()]
+    plain = k6._lookup_packed(packed._replace(flat=ref[0]), ref[1], radius)
+    want = torch.autograd.grad(plain, ref, cot)
+    assert torch.equal(out.detach(), plain.detach())
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("cls", [raft.RAFTSmall, raft.RAFT], ids=["small", "large"])
+def test_raft_launches_the_lookup_kernel_once_a_lookup(cls, cuda):
+    """A RAFT estimate on the card counts as many K6 launches as lookups
+    (``lookup_packed.calls``), and its flow matches the CPU's."""
+    torch.manual_seed(8)
+    model = cls().eval()
+    rng = np.random.default_rng(8)
+    img = rng.uniform(0, 1, (2, 1, 64, 96, 3)).astype(np.float32)
+    on_cpu = raft.estimate(model, img[0], img[1], iters=3)
+    model = model.to(cuda)
+    calls, launches = k6.lookup_packed.calls, k6.lookup_packed.launches
+    on_card = raft.estimate(model, img[0], img[1], iters=3).cpu()
+    assert k6.lookup_packed.calls - calls == 3
+    assert k6.lookup_packed.launches - launches == 3
+    d = (on_card - on_cpu).abs()
+    rms = float(on_cpu.square().mean().sqrt())
+    assert float(d.mean()) <= 1e-3 * rms and float(d.max()) <= 5e-2 * rms
 
 
 def test_clip_on_card_matches_cpu(cuda):

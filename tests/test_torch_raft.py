@@ -136,6 +136,78 @@ def test_corr_lookup_one_pixel_level_weights(rng):
     np.testing.assert_allclose(out.numpy().ravel(), [0.7 * v], rtol=1e-6)
 
 
+def _packed(rng, B, h, w, levels=4):
+    vol = torch.from_numpy(rng.standard_normal((B, h, w, h, w)).astype(np.float32))
+    return allpairs.pack_pyramid(allpairs.corr_pyramid(vol, levels))
+
+
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("h,w", [(8, 8), (7, 9)], ids=["1px-coarsest", "empty-coarsest"])
+def test_lookup_cpu_route_is_the_plain_version_with_no_launch(h, w, radius, rng):
+    """A CPU tensor takes ``_lookup_packed`` (K6's plain version) as it is:
+    one call counted, no launch."""
+    packed = _packed(rng, 2, h, w)
+    flow = torch.from_numpy((rng.standard_normal((2, 2, h, w)) * 4).astype(np.float32))
+    calls, launches = allpairs.lookup_packed.calls, allpairs.lookup_packed.launches
+    got = allpairs.lookup_packed(packed, flow, radius)
+    assert torch.equal(got, allpairs._lookup_packed(packed, flow, radius))
+    assert allpairs.lookup_packed.calls == calls + 1
+    assert allpairs.lookup_packed.launches == launches
+
+
+def test_lookup_wrapper_rejects_what_it_does_not_take(rng):
+    """Every route: flow [B, 2, H, W] beside flat [B, H*W, K] on its device,
+    the levels packed side by side, a radius >= 0.  The card's route
+    besides: fp32, a contiguous volume, radius <= 4, 1..8 levels, sides
+    below 2^16, B <= 65535."""
+    packed = _packed(rng, 2, 8, 8)
+    flow = torch.zeros(2, 2, 8, 8)
+    lookup = allpairs.lookup_packed
+    with pytest.raises(ValueError, match=r"\[B, 2, H, W\]"):
+        lookup(packed, flow[:, :1], 4)
+    with pytest.raises(ValueError, match="packed volume must be"):
+        lookup(packed, torch.zeros(2, 2, 8, 9), 4)
+    with pytest.raises(ValueError, match="packed volume must be"):
+        lookup(packed, flow[:1], 4)
+    with pytest.raises(ValueError, match="side by side"):
+        lookup(packed._replace(sizes=packed.sizes[1:]), flow, 4)
+    with pytest.raises(ValueError, match="fill"):
+        lookup(packed._replace(sizes=packed.sizes[:-1] + ((84, 1, 2),)), flow, 4)
+    with pytest.raises(ValueError, match=">= 0"):
+        lookup(packed, flow, -1)
+    check = allpairs._check_kernel
+    check(packed, flow, 4)  # RAFT's
+    with pytest.raises(TypeError, match="float32"):
+        check(packed._replace(flat=packed.flat.double()), flow, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        check(packed._replace(flat=packed.flat.transpose(0, 1)), flow, 4)
+    with pytest.raises(ValueError, match="radius up to 4"):
+        check(packed, flow, 5)
+    with pytest.raises(ValueError, match="1..8 levels"):
+        check(packed._replace(sizes=()), flow, 4)
+    with pytest.raises(ValueError, match="1..8 levels"):
+        check(packed._replace(sizes=((0, 1, 1),) * 9), flow, 4)
+    with pytest.raises(ValueError, match="side exceeds"):
+        check(packed._replace(sizes=((0, 1, 65536),)), flow, 4)
+    with pytest.raises(ValueError, match="launch grid"):
+        check(packed, torch.zeros(65536, 2, 1, 1), 4)
+
+
+def test_a_sample_floor_lies_in_the_staged_window():
+    """K6 stages a level's window from floor(c) - r, c = cx 2^-l, over
+    2r+3 columns: a sample at fl(c + dx) floors to floor(c) + dx or one
+    above (never below, as floor(c) + dx is a float), and its right tap
+    one further.  Both cases occur, near integers from below."""
+    rng = np.random.default_rng(6)
+    below = np.nextafter(np.arange(-300, 300, dtype=np.float32), np.float32(-np.inf))
+    c = np.concatenate([rng.uniform(-300, 300, 20000).astype(np.float32), below])
+    shifts = set()
+    for dx in range(-4, 5):
+        x = (c + np.float32(dx)).astype(np.float32)
+        shifts.update(np.unique(np.floor(x) - np.floor(c) - dx).tolist())
+    assert shifts == {0.0, 1.0}
+
+
 def _jax_apply(jm, jp, a, b, iters, final_only=False):
     apply = jax.jit(jm.apply, static_argnums=(3,), static_argnames=("final_only",))
     return np.asarray(apply(jp, a, b, iters, final_only=final_only))

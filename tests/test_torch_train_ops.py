@@ -9,10 +9,11 @@ reference's ``correlation_pallas`` is a ``custom_vjp`` whose backward is
 against ``jax.vjp`` of ``correlation_lax`` (all six configurations) and of
 the ``core/warp.py`` warps (every convention, PWC-Net's mask away from its
 threshold); ``torch.autograd.gradcheck`` in float64 on both; and the two
-Functions' plumbing, with the kernel's forward stood in for by the plain
-version (the CUDA kernel itself runs only on the card:
-tests/test_torch_gpu.py, chip_smoke.py phase 23).  Inputs are made with
-numpy from a seed; the JAX side is NHWC, the port NCHW.
+Functions' plumbing, and K6's ``LookupFunction``'s, with the kernel's
+forward stood in for by the plain version (the CUDA kernel itself runs
+only on the card: tests/test_torch_gpu.py, chip_smoke.py phase 23).
+Inputs are made with numpy from a seed; the JAX side is NHWC, the port
+NCHW.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ import torch
 from opticalflowcontainer_tpu.core import warp as jwarp
 from opticalflowcontainer_tpu.ops import correlation_lax
 from opticalflowcontainer_tpu_torch.core import warp as twarp
+from opticalflowcontainer_tpu_torch.ops import allpairs
 from opticalflowcontainer_tpu_torch.ops import correlation as k4
 from opticalflowcontainer_tpu_torch.ops import warp_bilinear as k3
 from test_torch_correlation import CONFIGS
@@ -204,6 +206,29 @@ def test_warp_function_backward_is_the_plain_autograd(mask, monkeypatch, rng):
     ur = u.clone().requires_grad_()
     (want,) = torch.autograd.grad(k3.warp_bilinear_plain(src, ur, v, "edge", mask), ur, cot)
     assert torch.equal(got, want)
+
+
+def test_lookup_function_backward_is_the_plain_autograd(monkeypatch, rng):
+    """``LookupFunction`` (K6's gradient, RAFT-small trains through the
+    volume): one forward launch, and the volume's and the flow's gradients
+    equal the plain lookup's autograd bit for bit; with only the volume
+    needing one the flow gets none."""
+    calls = _counting(monkeypatch, allpairs, allpairs._lookup_flat)
+    vol = torch.from_numpy(rng.standard_normal((2, 7, 9, 7, 9)).astype(np.float32))
+    packed = allpairs.pack_pyramid(allpairs.corr_pyramid(vol, 4))
+    flow = torch.from_numpy(rng.uniform(-3, 3, (2, 2, 7, 9)).astype(np.float32))
+    cot = torch.randn((2, 4 * 49, 7, 9), generator=torch.Generator().manual_seed(2))
+    ins = [packed.flat.clone().requires_grad_(), flow.clone().requires_grad_()]
+    got = torch.autograd.grad(
+        allpairs.LookupFunction.apply(*ins, packed.sizes, 3), ins, cot)
+    ref = [packed.flat.clone().requires_grad_(), flow.clone().requires_grad_()]
+    want = torch.autograd.grad(allpairs._lookup_flat(*ref, packed.sizes, 3), ref, cot)
+    assert len(calls) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    flat = packed.flat.clone().requires_grad_()
+    out = allpairs.LookupFunction.apply(flat, flow, packed.sizes, 3)
+    (got,) = torch.autograd.grad(out, flat, cot)
+    assert torch.equal(got, want[0]) and len(calls) == 2
 
 
 def test_wrappers_pass_a_gradient_on_the_cpu(rng):
